@@ -1,0 +1,431 @@
+#!/usr/bin/env python3
+"""End-to-end check of the PyTorch port (`src/repro_torch`) on one NVIDIA card.
+
+Run from the root of a checkout, with no arguments:
+
+    python3 chip_smoke.py
+
+Phases (any failure exits non-zero; no phase's exception is caught):
+
+1. Card: print `nvidia-smi`'s name and power limit, build the CUDA kernels
+   from `src/repro_torch/kernels/csrc/` and print the build time.
+2. Kernel against plain: every kernel on the card against its plain PyTorch
+   version on the same inputs, int32 outputs equal element for element.
+3. Main path at real size: a seeded corpus of 4,096 byte documents
+   (sigma = 256, 14,667,776 encoded tokens; about 10% of the documents copy
+   a 512-byte passage of another one) goes through
+   `SuffixArrayIndex.from_docs` on the card with ``sort_impl="auto"``
+   (= "kernel"). Both kernels must have launched; the SA must pass an O(n)
+   check and equal the ``sort_impl="torch"`` build.
+4. Queries: 4,096 patterns of 32-512 tokens, half planted, through
+   `count_batch` and `locate_batch`; every planted pattern hits, and 16
+   counts equal a direct scan of the text on the card.
+5. Kernel times at the main path's level-0 shapes, beside their bounds,
+   the plain versions and one PyTorch library call.
+6. Trace: one more kernel-path build under `torch.profiler`: device time
+   by kernel and the device's idle share of the build's wall time.
+
+Standard output ends with a JSON line of per-kernel numbers, the card's
+name and power limit, and ``{"ok": true, "device": {...}}``.
+"""
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+from unittest import mock
+
+ROOT = Path(__file__).resolve().parent
+sys.path.insert(0, str(ROOT / "src"))
+
+N_DOCS = 4096
+DOC_LEN = 3580          # 4096 * 3581 = 14,667,776 tokens: level 0 pads to 2^24 rows
+SIGMA = 256
+PASSAGE = 512
+COPY_SHARE = 0.10
+N_PATTERNS = 4096
+N_SCANNED = 16
+SEED = 20261017
+
+#: HBM bandwidth (bytes/s) by card name, from NVIDIA's data sheets.
+DRAM_BYTES_PER_S = (("H200", 4.8e12), ("H100 NVL", 3.9e12),
+                    ("H100 PCIe", 2.0e12), ("H100", 3.35e12))
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def card_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout
+    return out.strip().splitlines()[0]
+
+
+def dram_bytes_per_s(name: str) -> float:
+    for key, rate in DRAM_BYTES_PER_S:
+        if key in name:
+            return rate
+    raise RuntimeError(f"no memory bandwidth on record for {name!r}")
+
+
+def time_ms(fn, dev, reps: int = 1) -> float:
+    """Mean milliseconds of fn() over `reps` runs after one warm-up: CUDA
+    events on the card, the host clock on the CPU."""
+    import torch
+    fn()
+    if dev.type == "cuda":
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize(dev)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        torch.cuda.synchronize(dev)
+        return start.elapsed_time(end) / reps
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    return 1e3 * (time.perf_counter() - t0) / reps
+
+
+def sync(dev) -> None:
+    import torch
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def plain_stage(rows, k, j, num_keys=None, *, inplace=False):
+    """`ops.bitonic_stage` on the plain version, on any device."""
+    from repro_torch.kernels import ref
+    out = ref.bitonic_stage_ref(rows, k, j, num_keys)
+    return rows.copy_(out) if inplace else out
+
+
+def plain_seg(rows, num_keys=None, block=512):
+    from repro_torch.kernels import ref
+    return ref.seg_boundary_ref(rows, num_keys, block)
+
+
+def require_equal(name: str, got, want) -> int:
+    """Exact equality of two integer tensors; returns the max abs error."""
+    assert got.shape == want.shape and got.dtype == want.dtype, name
+    err = int((got.long() - want.long()).abs().max()) if got.numel() else 0
+    if err:
+        raise AssertionError(f"{name}: kernel differs from plain by {err}")
+    return err
+
+
+# --------------------------------------------------------------- phase 2
+def kernels_against_plain(dev, scale: int = 1) -> None:
+    import numpy as np
+    import torch
+    from repro_torch.kernels import ops, ref
+    rng = np.random.default_rng(SEED)
+    n = 16384 // scale
+    for w in (2, 4, 9, 66):
+        rows = torch.from_numpy(
+            rng.integers(-5, 5, (n, w)).astype(np.int32)).to(dev)
+        for k, j in ((2, 1), (64, 8), (4096 // scale, 128),
+                     (n, n // 2), (n, 512 // scale)):
+            for num_keys in (w, max(1, w // 2)):
+                require_equal(f"bitonic_stage W={w} k={k} j={j}",
+                              ops.bitonic_stage(rows, k, j, num_keys),
+                              ref.bitonic_stage_ref(rows, k, j, num_keys))
+    for n in (2 ** 10, 2 ** 20 // scale):
+        rows = torch.from_numpy(
+            rng.integers(-50, 50, (n, 4)).astype(np.int32)).to(dev)
+        rows[:, 3] = torch.from_numpy(
+            rng.permutation(n).astype(np.int32)).to(dev)
+        got = ops.bitonic_sort(rows)
+        with mock.patch.object(ops, "bitonic_stage", plain_stage):
+            require_equal(f"bitonic_sort N={n}", got, ops.bitonic_sort(rows))
+        require_equal(f"bitonic_sort N={n} (oracle)", got,
+                      ref.bitonic_sort_ref(rows))
+    n = 65536 // scale
+    cases = {
+        "random": ref.bitonic_sort_ref(torch.from_numpy(
+            rng.integers(0, 3, (n, 3)).astype(np.int32))),
+        "all_equal": torch.full((n, 3), 7, dtype=torch.int32),
+        "all_distinct": torch.arange(n, dtype=torch.int32)[:, None]
+        .repeat(1, 3),
+    }
+    for kind, rows in cases.items():
+        rows = rows.to(dev)
+        for num_keys in (None, 2):
+            for g, w in zip(ops.seg_boundary(rows, num_keys),
+                            ref.seg_boundary_ref(rows, num_keys)):
+                require_equal(f"seg_boundary {kind}", g, w)
+            for m in (n, n - 333):                 # not a multiple of 512
+                got, nd = ops.dense_rank_sorted(rows[:m], num_keys)
+                with mock.patch.object(ops, "seg_boundary", plain_seg):
+                    want, want_nd = ops.dense_rank_sorted(rows[:m], num_keys)
+                require_equal(f"dense_rank_sorted {kind} N={m}", got, want)
+                assert int(nd) == int(want_nd), kind
+
+
+# --------------------------------------------------------------- phase 3
+def make_corpus(n_docs: int, doc_len: int, seed: int):
+    """Seeded byte documents; COPY_SHARE of them copy a PASSAGE-byte slice
+    of another document, so the tie and Lemma-1 paths run at scale."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    docs = rng.integers(0, SIGMA, (n_docs, doc_len))
+    passage = min(PASSAGE, doc_len // 2)
+    for d in rng.choice(n_docs, int(COPY_SHARE * n_docs), replace=False):
+        src = (int(d) + 1 + int(rng.integers(n_docs - 1))) % n_docs
+        a, b = rng.integers(0, doc_len - passage, 2)
+        docs[d, b:b + passage] = docs[src, a:a + passage]
+    return list(docs)
+
+
+def check_suffix_array(text, sa) -> None:
+    """O(n) check, independent of the build: `sa` is a permutation, and
+    each adjacent pair (a, b) has (x[a], rank[a+1]) < (x[b], rank[b+1]),
+    a suffix that runs out comparing low."""
+    import torch
+    n = len(text)
+    sa = sa.long()
+    assert bool((torch.bincount(sa, minlength=n) == 1).all()), "not a perm"
+    rank = torch.full((n + 1,), -1, dtype=torch.int64, device=text.device)
+    rank[sa] = torch.arange(n, device=text.device)
+    a, b = sa[:-1], sa[1:]
+    ok = (text[a] < text[b]) | ((text[a] == text[b])
+                                & (rank[a + 1] < rank[b + 1]))
+    assert bool(ok.all()), f"{int((~ok).sum())} adjacent pairs out of order"
+
+
+def main_path(dev, docs):
+    import torch
+    from repro_torch.api import SAOptions, SuffixArrayIndex, build_suffix_array
+    from repro_torch.kernels import ops
+    for key in ops.LAUNCHES:
+        ops.LAUNCHES[key] = 0
+    sync(dev)
+    t0 = time.perf_counter()
+    idx = SuffixArrayIndex.from_docs(docs, SAOptions(), device=dev)
+    sync(dev)
+    t_kernel = time.perf_counter() - t0
+    launches = dict(ops.LAUNCHES)
+    log(f"main path: from_docs n={idx.n} docs={idx.n_docs} "
+        f"sort_impl=auto(kernel) build_s={t_kernel:.3f} launches={launches}")
+    if dev.type == "cuda":
+        assert all(v > 0 for v in launches.values()), launches
+    check_suffix_array(idx.text, idx.sa)
+    builds = {"kernel": [t_kernel], "torch": []}
+    for impl in ("torch", "kernel", "torch"):
+        sync(dev)
+        t0 = time.perf_counter()
+        sa = build_suffix_array(idx.text, SAOptions(sort_impl=impl),
+                                device=dev)
+        sync(dev)
+        builds[impl].append(time.perf_counter() - t0)
+        assert torch.equal(sa, idx.sa), f"sort_impl={impl} SA differs"
+    log(f"main path: SA passes the O(n) check; kernel and torch builds "
+        f"agree; build_s kernel={builds['kernel']} torch={builds['torch']}")
+    return idx, launches, builds
+
+
+# --------------------------------------------------------------- phase 4
+def scan_count(text, pat, chunk: int = 1 << 20) -> int:
+    """Occurrences of `pat` by a direct scan of every window of the text."""
+    wins = text.unfold(0, len(pat), 1)
+    return sum(int((wins[a:a + chunk] == pat).all(dim=1).sum())
+               for a in range(0, wins.shape[0], chunk))
+
+
+def queries(dev, idx, docs, n_patterns: int, max_len: int = 512):
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(SEED + 1)
+    doc_len = len(docs[0])
+    lens = rng.integers(32, max_len + 1, n_patterns)
+    planted = np.arange(n_patterns) % 2 == 0
+    pats, where = [], {}
+    for i, m in enumerate(lens):
+        if planted[i]:
+            d = int(rng.integers(len(docs)))
+            off = int(rng.integers(0, doc_len - m + 1))
+            pats.append(np.asarray(docs[d][off:off + m]))
+            where[i] = int(idx.doc_starts[d]) + off
+        else:
+            pats.append(rng.integers(0, SIGMA, m))
+    times = {}
+    for run in ("first", "second"):
+        t0 = time.perf_counter()
+        counts = idx.count_batch(pats)
+        times[f"count_{run}_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    located = idx.locate_batch(pats)
+    times["locate_s"] = time.perf_counter() - t0
+    assert (counts[planted] >= 1).all(), "a planted pattern missed"
+    assert all(len(p) == c for p, c in zip(located, counts))
+    assert all(pos in located[i] for i, pos in where.items())
+    text = idx.text.to(torch.int32)
+    for i in list(range(N_SCANNED // 2)) + list(
+            range(n_patterns - N_SCANNED // 2, n_patterns)):
+        pat = torch.from_numpy(pats[i] + idx.shift).to(dev, torch.int32)
+        assert scan_count(text, pat) == counts[i], f"pattern {i}"
+    rate = {k[:-2] + "_patterns_per_s": n_patterns / v
+            for k, v in times.items()}
+    log(f"queries: {n_patterns} patterns (half planted, all hit; "
+        f"{N_SCANNED} scan-checked) {json.dumps(rate)}")
+    return rate
+
+
+# --------------------------------------------------------------- phase 5
+def kernel_times(dev, idx, launches, bandwidth: float):
+    import torch
+    from repro_torch.core import dcv_torch
+    from repro_torch.kernels import ops
+    x = idx.text
+    n, v = len(x), 3
+    n_v = v * -(-dcv_torch.pad_bucket(n) // v)
+    xp = dcv_torch._padded_text(x, n_v, v)
+    rows = dcv_torch._window_rows(xp, n_v, v)
+    n2, w = rows.shape
+    stages = (n2.bit_length() - 1) * n2.bit_length() // 2
+    log(f"level 0: window rows int32[{n2}, {w}] (n_v={n_v}), "
+        f"{stages} bitonic stages")
+
+    sort_ms = time_ms(lambda: ops.bitonic_sort(rows), dev, reps=3)
+    out = ops.bitonic_sort(rows)
+    with mock.patch.object(ops, "bitonic_stage", plain_stage):
+        plain_sort_ms = time_ms(lambda: ops.bitonic_sort(rows), dev)
+        sort_err = require_equal("bitonic_sort level 0", out,
+                                 ops.bitonic_sort(rows))
+    words = dcv_torch._window_words(xp, n_v, v, -(n_v + 2 * v - n),
+                                    int(x.max()))
+    if len(words) == 1:
+        lib_sort_ms = time_ms(lambda: torch.sort(words[0], stable=True), dev,
+                              reps=3)
+        lib_note = "torch.sort(stable=True) of the packed int64 window key"
+    else:
+        lib_sort_ms = time_ms(lambda: dcv_torch._order_from_words(words),
+                              dev, reps=3)
+        lib_note = f"{len(words)} stable torch.sort passes of packed keys"
+    sort_bytes = 2 * rows.numel() * 4
+
+    # Step-1 sample rows of level 0, in window-sorted order
+    order = out[:n_v, v].long()
+    in_d = dcv_torch._cover_constants(v, dev)[1]
+    samples = out[:n_v, :v][in_d[order % v]].contiguous()
+    m = samples.shape[0]
+    rank_ms = time_ms(lambda: ops.dense_rank_sorted(samples), dev, reps=5)
+    ranks, _ = ops.dense_rank_sorted(samples)
+    pad = (-m) % 512
+    padded = torch.cat([samples, samples[-1:].expand(pad, v)])
+    seg_ms = time_ms(lambda: ops.seg_boundary(padded), dev, reps=5)
+    with mock.patch.object(ops, "seg_boundary", plain_seg):
+        plain_rank_ms = time_ms(lambda: ops.dense_rank_sorted(samples), dev)
+        rank_err = require_equal("dense_rank_sorted level 0", ranks,
+                                 ops.dense_rank_sorted(samples)[0])
+    lib_rank_ms = time_ms(lambda: torch.unique_consecutive(
+        samples, dim=0, return_inverse=True), dev, reps=3)
+    rank_bytes = samples.numel() * 4 + m * 4
+    seg_bytes = padded.numel() * 4 + 2 * padded.shape[0] * 4 \
+        + padded.shape[0] // 512 * 4
+
+    src = "src/repro_torch/kernels/csrc/"
+    return [
+        {"name": "bitonic_stage", "route": "cuda",
+         "source": src + "bitonic_stage.cu",
+         "replaces": "src/repro/kernels/bitonic_stage.py:52",
+         "also_replaces": "src/repro/kernels/bitonic_stage.py:34",
+         "launches": launches["bitonic_stage"], "max_abs_err": sort_err,
+         "function": f"bitonic_sort of int32[{n2}, {w}] level-0 window rows "
+                     f"({stages} launches)",
+         "ms": sort_ms, "plain_ms": plain_sort_ms,
+         "bound_ms": 1e3 * sort_bytes / bandwidth, "bound_by": "bytes",
+         "library_ms": lib_sort_ms, "library_call": lib_note,
+         "per_launch_ms": sort_ms / stages},
+        {"name": "seg_boundary", "route": "cuda",
+         "source": src + "seg_boundary.cu",
+         "replaces": "src/repro/kernels/seg_boundary.py:18",
+         "launches": launches["seg_boundary"], "max_abs_err": rank_err,
+         "function": f"dense_rank_sorted of int32[{m}, {v}] level-0 sample "
+                     f"rows (1 launch + stitch)",
+         "ms": rank_ms, "plain_ms": plain_rank_ms,
+         "bound_ms": 1e3 * rank_bytes / bandwidth, "bound_by": "bytes",
+         "library_ms": lib_rank_ms,
+         "library_call": "torch.unique_consecutive(rows, dim=0, "
+                         "return_inverse=True)",
+         "kernel_only_ms": seg_ms,
+         "kernel_only_bound_ms": 1e3 * seg_bytes / bandwidth},
+    ]
+
+
+# --------------------------------------------------------------- phase 6
+def trace_build(dev, idx, top: int = 8) -> dict:
+    """Device time by kernel over one kernel-path build under
+    torch.profiler, and the device's idle share of its wall time (the
+    profiler's own host overhead is inside that wall time)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.api import SAOptions, build_suffix_array
+    activities = [ProfilerActivity.CPU]
+    if dev.type == "cuda":
+        activities.append(ProfilerActivity.CUDA)
+    sync(dev)
+    with profile(activities=activities) as prof:
+        t0 = time.perf_counter()
+        build_suffix_array(idx.text, SAOptions(), device=dev)
+        sync(dev)
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    by_name: dict[str, list] = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            entry = by_name.setdefault(e.name, [0.0, 0])
+            entry[0] += e.time_range.elapsed_us() / 1e3
+            entry[1] += 1
+    busy_ms = sum(ms for ms, _ in by_name.values())
+    ranked = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:top]
+    return {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
+            "device_idle_share": 1 - busy_ms / wall_ms if busy_ms else None,
+            "top": [{"name": name[:90], "ms": ms, "count": count}
+                    for name, (ms, count) in ranked]}
+
+
+def main() -> int:
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this check runs on the card only",
+              file=sys.stderr)
+        return 1
+    from repro_torch.kernels import _build
+    dev = torch.device("cuda", 0)
+    card = card_line()
+    log(f"card: {card} ({torch.cuda.get_device_name(0)}); torch "
+        f"{torch.__version__}, CUDA {torch.version.cuda}")
+    t0 = time.perf_counter()
+    lib = _build.build()
+    _build.library()
+    log(f"kernels built: {lib.relative_to(ROOT)} in "
+        f"{time.perf_counter() - t0:.2f} s")
+
+    t0 = time.perf_counter()
+    kernels_against_plain(dev)
+    log(f"kernels against plain: all equal ({time.perf_counter() - t0:.1f} s)")
+
+    docs = make_corpus(N_DOCS, DOC_LEN, SEED)
+    idx, launches, builds = main_path(dev, docs)
+    rates = queries(dev, idx, docs, N_PATTERNS)
+    table = kernel_times(dev, idx, launches,
+                         dram_bytes_per_s(torch.cuda.get_device_name(0)))
+    log(json.dumps({"builds_s": builds, "queries": rates}))
+    log(json.dumps({"trace": trace_build(dev, idx)}))
+    print(json.dumps({"kernels": table}))
+    print(card)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

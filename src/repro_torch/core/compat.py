@@ -1,0 +1,64 @@
+"""Device resolution and the `sort_impl` names of the port.
+
+Entry points take ``device=`` and default to ``"cuda"``. `resolve_device`
+raises when CUDA is asked for and absent: the port never carries on on
+the CPU unless the caller asks for it with ``device="cpu"``.
+
+`sort_impl` selects the window-sort primitive of `dcv_torch`:
+
+==========  ==============================================================
+"kernel"    the hand-written Hopper kernels in `repro_torch.kernels` (row
+            bitonic sort + `dense_rank_sorted`); on a CPU tensor the same
+            code path runs their plain PyTorch versions. The counterpart
+            of the JAX package's "pallas".
+"torch"     stock `torch.sort(stable=True)` over packed int64 window keys,
+            the counterpart of "lax"; the yardstick for "kernel".
+"auto"      resolves to "kernel" on every device.
+==========  ==============================================================
+
+"radix" and "bitonic" are names of the JAX package that the port has not
+taken over yet; asking for them raises `NotImplementedError`.
+"""
+from __future__ import annotations
+
+import torch
+
+#: accepted `sort_impl` values ("auto" resolves via `default_sort_impl`).
+SORT_IMPLS = ("auto", "torch", "kernel")
+
+#: reference names the port does not implement yet.
+NOT_PORTED_SORT_IMPLS = ("radix", "bitonic")
+
+
+def resolve_device(device="cuda") -> torch.device:
+    """`device` as a `torch.device`; raises `RuntimeError` for a CUDA
+    device on a host without one."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device is available; pass device='cpu' to run the "
+            "port's plain PyTorch path on the CPU")
+    return dev
+
+
+def check_sort_impl(sort_impl: str) -> str:
+    """Validate a `sort_impl` name; returns it unchanged."""
+    if sort_impl in NOT_PORTED_SORT_IMPLS:
+        raise NotImplementedError(
+            f"sort_impl={sort_impl!r} is not ported yet; use one of "
+            f"{SORT_IMPLS}")
+    if sort_impl not in SORT_IMPLS:
+        raise ValueError(f"unknown sort_impl {sort_impl!r}; "
+                         f"expected one of {SORT_IMPLS}")
+    return sort_impl
+
+
+def default_sort_impl() -> str:
+    """What "auto" resolves to: "kernel", on every device."""
+    return "kernel"
+
+
+def resolve_sort_impl(sort_impl: str) -> str:
+    """Validate `sort_impl` and resolve "auto"."""
+    check_sort_impl(sort_impl)
+    return default_sort_impl() if sort_impl == "auto" else sort_impl

@@ -1,0 +1,466 @@
+"""Vectorised single-device DC-v suffix array construction in PyTorch.
+
+The port of `repro.core.dcv_jax`: the same mathematics as `seq_ref`
+(difference-cover sampling + Lemma-1 comparisons), organised so that each
+recursion level is dominated by ONE multi-key sort:
+
+* the v-character windows of ALL n_v positions are sorted once per level;
+  the sample super-character ranks of Step 1 fall out of that order by
+  filtering it to sample positions (a stable subsequence of a sorted
+  sequence is sorted), and the same order is the Steps 2–4 candidate;
+* suffix pairs sharing their full v-prefix form *tie groups*; large tie
+  sets are first shrunk by stride-doubling refinement rounds, and the
+  residue is resolved with the paper's Lemma-1 comparator
+  `rank[i + Λ[k_i][k_j]]` on a compacted payload.
+
+Every tensor stays on the input's device. The host reads the device only
+where Python control flow needs a number: whether the sample ranks are
+all distinct (one read per level), the size of the unresolved tie set
+after each refinement round, and the widest tie group.
+
+`sort_impl` picks the window sort (see `repro_torch.core.compat`):
+"kernel" sorts window rows with the bitonic kernel and ranks the samples
+with `dense_rank_sorted`; "torch" packs the window columns into int64
+words and sorts them with stable `torch.sort` passes.
+"""
+from __future__ import annotations
+
+import functools
+
+import numpy as np
+import torch
+
+from ..kernels.ops import bitonic_sort as kernel_bitonic_sort
+from ..kernels.ops import dense_rank_sorted
+from .bitonic import bitonic_sort, next_pow2
+from .compat import resolve_device, resolve_sort_impl
+from .difference_cover import cover_tables
+from .seq_ref import accelerated_next_v
+
+INT32_MAX = 2 ** 31 - 1
+I64 = torch.int64
+
+
+# --------------------------------------------------------------------------
+# shape bucketing — the builder cache's padding rule
+# --------------------------------------------------------------------------
+#: lengths below this are never bucketed.
+_BUCKET_MIN = 512
+
+
+def pad_bucket(n: int) -> int:
+    """Smallest grid length ≥ n, grid = {2^k · q/4 : q ∈ {4,5,6,7}}.
+
+    Quantising every level's length to this geometric grid (ratio ≤ 1.25,
+    so ≤ 25% padding) collapses the open-ended family of input lengths onto
+    O(log n) distinct shapes, which the builder cache in
+    `repro_torch.api.build` keys on.
+    """
+    if n <= _BUCKET_MIN:
+        return n
+    base = 1 << (n - 1).bit_length() - 1          # largest power of two < n
+    for q in (4, 5, 6, 7):
+        cand = base * q // 4
+        if cand >= n:
+            return cand
+    return base * 2
+
+
+# --------------------------------------------------------------------------
+# per-level constants
+# --------------------------------------------------------------------------
+@functools.lru_cache(maxsize=256)
+def _cover_constants(v: int, device: torch.device):
+    """Device copies of the (small) cover tables of modulus v:
+    (D int64[|D|], in_D bool[v], shifts int64[v, |D|], lam1, lam2
+    int64[v, v]). Cached so a level does not copy them again."""
+    tabs = cover_tables(v)
+    return tuple(torch.as_tensor(np.asarray(a), device=device)
+                 for a in (np.asarray(tabs.D, np.int64), tabs.in_D,
+                           tabs.shifts.astype(np.int64),
+                           tabs.lam_idx1.astype(np.int64),
+                           tabs.lam_idx2.astype(np.int64)))
+
+
+def _level_constants(n_v: int, v: int, device: torch.device):
+    """Constants of one (n_v, v) level on `device`: (sample_pos int64[m] in
+    block-major order, inv_sample int64[n_v] (-1 off the sample), in_D,
+    shifts, lam1, lam2). The position maps are computed on the device, so
+    no level copies an n_v-sized table from the host."""
+    D, in_D, shifts, lam1, lam2 = _cover_constants(v, device)
+    per_block = n_v // v
+    sample_pos = (D[:, None] + torch.arange(per_block, device=device)[None, :]
+                  * v).reshape(-1)
+    inv_sample = torch.full((n_v,), -1, dtype=I64, device=device)
+    inv_sample[sample_pos] = torch.arange(len(sample_pos), device=device)
+    return sample_pos, inv_sample, in_D, shifts, lam1, lam2
+
+
+# --------------------------------------------------------------------------
+# helpers
+# --------------------------------------------------------------------------
+def _compact(mask: torch.Tensor, count: int) -> torch.Tensor:
+    """Ascending indices of the True entries of `mask`, whose number the
+    caller knows (`count`) — `torch.nonzero` without its host read."""
+    dest = torch.where(mask, torch.cumsum(mask, 0) - 1, count)
+    out = torch.empty(count + 1, dtype=I64, device=mask.device)
+    out.scatter_(0, dest, torch.arange(len(mask), device=mask.device))
+    return out[:count]
+
+
+def _padded_text(x: torch.Tensor, n_v: int, v: int) -> torch.Tensor:
+    """x padded to n_v + 2v with *distinct, decreasing* negative sentinels.
+
+    Distinctness matters: equal sentinels would form giant tie groups and
+    defeat the all-distinct recursion short-circuit once bucketing makes the
+    pad region large. Correctness needs only "below the alphabet": the
+    first differing window column between two real suffixes is never
+    pad-vs-pad (pad values are position-unique)."""
+    n = len(x)
+    xp = torch.empty(n_v + 2 * v, dtype=I64, device=x.device)
+    xp[:n] = x
+    xp[n:] = -1 - torch.arange(n_v + 2 * v - n, device=x.device)
+    return xp
+
+
+def _window_rows(xp: torch.Tensor, n_v: int, v: int) -> torch.Tensor:
+    """int32[next_pow2(n_v), v + 1]: the v-character window of every
+    position plus an index column (a total order), then INT32_MAX pad rows,
+    which sort after every real row."""
+    n2 = next_pow2(n_v)
+    rows = torch.empty((n2, v + 1), dtype=torch.int32, device=xp.device)
+    for c in range(v):
+        rows[:n_v, c] = xp[c:c + n_v]
+    rows[:n_v, v] = torch.arange(n_v, dtype=torch.int32, device=xp.device)
+    rows[n_v:] = INT32_MAX
+    return rows
+
+
+def _window_words(xp: torch.Tensor, n_v: int, v: int, lo: int,
+                  hi: int) -> list[torch.Tensor]:
+    """Pack the v-character windows at positions [0, n_v) into int64 words.
+
+    Values (in [lo, hi]) are shifted to non-negative and packed
+    most-significant-column-first, `63 // bits` columns per word (torch
+    sorts signed int64 only, so the sign bit stays clear): comparing the
+    word list lexicographically equals comparing windows."""
+    bits = max(1, int(hi - lo).bit_length())
+    per_word = max(1, 63 // bits)
+    words = []
+    for start in range(0, v, per_word):
+        w = torch.zeros(n_v, dtype=I64, device=xp.device)
+        for c in range(start, min(start + per_word, v)):
+            w = (w << bits) | (xp[c:c + n_v] - lo)
+        words.append(w)
+    return words
+
+
+def _order_from_words(words: list[torch.Tensor]) -> torch.Tensor:
+    """Lexicographic argsort of packed word lists: stable LSD passes, so
+    equal windows stay in position order."""
+    order = torch.arange(len(words[0]), device=words[0].device)
+    for w in reversed(words):
+        order = order[torch.sort(w[order], stable=True).indices]
+    return order
+
+
+def _rows_neq(rep: list[torch.Tensor], pa: torch.Tensor,
+              pb: torch.Tensor) -> torch.Tensor:
+    """Element-wise "window at pa differs from window at pb" via `rep`."""
+    neq = rep[0][pa] != rep[0][pb]
+    for w in rep[1:]:
+        neq |= w[pa] != w[pb]
+    return neq
+
+
+def _window_order(xp: torch.Tensor, n_v: int, v: int, lo: int, hi: int,
+                  impl: str):
+    """Sort all n_v window rows with the chosen impl.
+
+    Returns (order int64[n_v], is_start bool[n_v], sorted_rows): `order`
+    sorts positions by (window, position); `is_start` marks the
+    row-equality run boundaries along `order`. `sorted_rows` is the window
+    matrix in sorted order (int32[n_v, v]) for "kernel" and the packed
+    words (position-indexed) for "torch".
+    """
+    is_start = torch.ones(n_v, dtype=torch.bool, device=xp.device)
+    if impl == "kernel":
+        out = kernel_bitonic_sort(_window_rows(xp, n_v, v))[:n_v]
+        srt = out[:, :v]
+        is_start[1:] = (srt[1:] != srt[:-1]).any(dim=1)
+        return out[:, v].long(), is_start, srt
+    words = _window_words(xp, n_v, v, lo, hi)
+    order = _order_from_words(words)
+    is_start[1:] = _rows_neq(words, order[1:], order[:-1])
+    return order, is_start, words
+
+
+# --------------------------------------------------------------------------
+# prefix-doubling base case
+# --------------------------------------------------------------------------
+def suffix_array_doubling_torch(x: torch.Tensor) -> torch.Tensor:
+    """Prefix-doubling base case (Manber–Myers): ceil(log2 n) + 1 rounds,
+    each one stable `torch.sort` of the packed key (rank, shifted + 1).
+    x: int64[n], values in [0, 2³¹). Returns int64[n]."""
+    n = len(x)
+    steps = max(1, int(np.ceil(np.log2(max(n, 2)))) + 1)
+
+    def dense_rank(k1, k2):
+        s, perm = torch.sort((k1 << 32) | (k2 + 1), stable=True)
+        boundary = torch.ones(n, dtype=torch.bool, device=x.device)
+        boundary[1:] = s[1:] != s[:-1]
+        rank = torch.empty(n, dtype=I64, device=x.device)
+        rank[perm] = torch.cumsum(boundary, 0) - 1
+        return rank, perm
+
+    rank, perm = dense_rank(x, torch.zeros_like(x))
+    for s in range(steps):
+        h = 1 << s
+        shifted = torch.full_like(rank, -1)
+        if h < n:
+            shifted[:n - h] = rank[h:]
+        rank, perm = dense_rank(rank, shifted)
+    return perm
+
+
+# --------------------------------------------------------------------------
+# Lemma-1 tie resolution
+# --------------------------------------------------------------------------
+def _lambda_tiebreak(seg, rvals, klass, pos, lam1, lam2) -> torch.Tensor:
+    """Sort the compacted tie payload by (tie group, Lemma-1 rank, index).
+
+    All rows of one `seg` group share their full v-character prefix, so the
+    Lemma-1 comparison degenerates to a rank lookup, `rank[i + Λ[k_i][k_j]]`
+    via the per-class local index tables. Pad rows carry seg = INT32_MAX
+    and sort to the back. Length must be a power of two."""
+    payload = {"seg": seg, "ranks": rvals, "klass": klass, "idx": pos}
+
+    def lt_fn(a, b):
+        seg_eq = a["seg"] == b["seg"]
+        ka, kb = a["klass"], b["klass"]
+        ra = a["ranks"].gather(1, lam1[ka, kb][:, None])[:, 0]
+        rb = b["ranks"].gather(1, lam2[ka, kb][:, None])[:, 0]
+        return torch.where(seg_eq & (ra != rb), ra < rb,
+                           torch.where(seg_eq, a["idx"] < b["idx"],
+                                       a["seg"] < b["seg"]))
+
+    return bitonic_sort(payload, lt_fn)["idx"]
+
+
+#: tie groups at most this wide run lane-parallel (`_lambda_tiebreak_lanes`);
+#: wider ones run the full-length network (`_lambda_tiebreak`).
+_LANE_MAX = 16
+
+
+def _lambda_tiebreak_lanes(p, lane, n_rows, g2, rvals, klass, lam1,
+                           lam2) -> torch.Tensor:
+    """Lane-parallel bitonic over [n_rows, g2] tie groups: one
+    compare-exchange stage is one Lemma-1 comparator evaluation across every
+    group at once. `lane` is each row's offset inside its group; pads (-1)
+    act as +inf. Returns p reordered, groups in slot order."""
+    device = p.device
+    row_of = torch.cumsum(lane == 0, 0) - 1
+    mat = torch.full((n_rows, g2), -1, dtype=I64, device=device)
+    mat[row_of, lane] = torch.arange(len(p), device=device)
+
+    def lt(a, b):
+        ac, bc = a.clamp(min=0), b.clamp(min=0)
+        ka, kb = klass[ac], klass[bc]
+        ra = rvals[ac, lam1[ka, kb]]
+        rb = rvals[bc, lam2[ka, kb]]
+        res = torch.where(ra != rb, ra < rb, p[ac] < p[bc])
+        return torch.where(a < 0, False, torch.where(b < 0, True, res))
+
+    lanes = torch.arange(g2, device=device)
+    k = 2
+    while k <= g2:
+        j = k // 2
+        while j >= 1:
+            partner = lanes ^ j
+            other = mat[:, partner]
+            up = (lanes & k) == 0
+            lower = lanes < partner
+            keep = (lt(mat, other) == lower[None, :]) == up[None, :]
+            mat = torch.where(keep, mat, other)
+            j //= 2
+        k *= 2
+    flat = mat.reshape(-1)
+    return p[flat[_compact(flat >= 0, len(p))]]
+
+
+#: tie sets larger than max(this, n_v/8) are first shrunk by stride-doubling
+#: refinement rounds before any comparator runs.
+_TIEBREAK_COMPACT_MAX = 1024
+
+
+def _run_state(is_start: torch.Tensor):
+    """Per slot: the slot where its run starts, and the run's size.
+    `is_start[0]` must be True."""
+    n = len(is_start)
+    run_id = torch.cumsum(is_start, 0) - 1
+    # start_of[r] = first slot of run r; the entry after the last run keeps
+    # n (the non-start slots all scatter into start_of[n], read only when
+    # every slot starts a run, and then nothing scatters there).
+    start_of = torch.full((n + 1,), n, dtype=I64, device=is_start.device)
+    start_of.scatter_(0, torch.where(is_start, run_id, n),
+                      torch.arange(n, device=is_start.device))
+    run_start = start_of[run_id]
+    return run_start, start_of[run_id + 1] - run_start
+
+
+def _resolve_ties(order, is_start, rank, shifts, lam1, lam2, v: int,
+                  n_v: int) -> torch.Tensor:
+    """Steps 2–4 second half: refine the window-sorted candidate order.
+
+    `order` sorts all n_v suffixes by their v-character window; `is_start`
+    marks tie-group boundaries along it. While the tie set is large,
+    stride-doubling refinement rounds shrink it using the group ranks
+    themselves as keys (Manber–Myers, seeded at resolution v); the residue
+    is resolved by the Lemma-1 comparator on a compacted payload —
+    lane-parallel for narrow groups, the full-length network for wide ones.
+    `order` and `is_start` are updated in place; returns `order`.
+    """
+    run_start, sizes = _run_state(is_start)
+    r_pos = torch.empty(n_v, dtype=I64, device=order.device)
+    r_pos[order] = run_start
+    unresolved = sizes > 1
+    U = int(unresolved.sum())
+    if U == 0:
+        return order
+
+    # Refinement: slots in one run share their first `stride` characters,
+    # so (r_pos[i], r_pos[i + stride]) is a valid refinement key.
+    stride = v
+    cap = max(_TIEBREAK_COMPACT_MAX, n_v >> 3)
+    while U > cap and stride < n_v:
+        sl = _compact(unresolved, U)
+        p = order[sl]
+        nxt = p + stride
+        key = torch.where(nxt < n_v, r_pos[nxt.clamp(max=n_v - 1)], -1)
+        packed = (r_pos[p] << 32) | (key + 1)             # both < 2^31
+        pk, local = torch.sort(packed, stable=True)
+        order[sl] = p[local]
+        # run starts re-emerge via the high bits; interiors refine.
+        is_start[sl[1:]] = pk[1:] != pk[:-1]
+        run_start, sizes = _run_state(is_start)
+        r_pos[order] = run_start
+        unresolved = sizes > 1
+        U = int(unresolved.sum())
+        stride *= 2
+    if U == 0:
+        return order
+
+    # Lemma-1 comparator on the compacted ties only.
+    sl = _compact(unresolved, U)
+    p = order[sl]
+    klass = p % v
+    rvals = rank[p[:, None] + shifts[klass]]
+    lane = sl - run_start[sl]
+    widest, n_rows = torch.stack([lane.max(), (lane == 0).sum()]).tolist()
+    g2 = next_pow2(widest + 1)
+    if g2 <= _LANE_MAX:
+        order[sl] = _lambda_tiebreak_lanes(p, lane, n_rows, g2, rvals, klass,
+                                           lam1, lam2)
+        return order
+
+    n2 = next_pow2(U)
+    device = order.device
+    seg = torch.full((n2,), INT32_MAX, dtype=I64, device=device)
+    rv = torch.zeros((n2, shifts.shape[1]), dtype=I64, device=device)
+    kl = torch.zeros(n2, dtype=I64, device=device)
+    pos = torch.full((n2,), INT32_MAX, dtype=I64, device=device)
+    seg[:U] = r_pos[p]
+    rv[:U] = rvals
+    kl[:U] = klass
+    pos[:U] = p
+    order[sl] = _lambda_tiebreak(seg, rv, kl, pos, lam1, lam2)[:U]
+    return order
+
+
+# --------------------------------------------------------------------------
+# recursion driver
+# --------------------------------------------------------------------------
+def suffix_array_torch(
+    x,
+    v: int = 3,
+    schedule=accelerated_next_v,
+    base_threshold: int | None = None,
+    sort_impl: str = "auto",
+    bucket: bool = False,
+    device="cuda",
+) -> torch.Tensor:
+    """Suffix array of x (ints ≥ 0, < 2³¹) — vectorised PyTorch DC-v.
+
+    Parameters
+    ----------
+    x : 1-D integer sequence (tokens / bytes): array-like or tensor.
+    v : initial difference-cover modulus (paper Algorithm 1).
+    schedule : ``(v, |D|, m) -> v'`` — the paper's accelerated v-schedule
+        by default.
+    base_threshold : recursion cutoff; below it a prefix-doubling sort runs
+        directly. ``None`` means 256.
+    sort_impl : one of `repro_torch.core.compat.SORT_IMPLS`.
+    bucket : pad every level's length up to the `pad_bucket` grid.
+    device : where the build runs; ``"cuda"`` unless the caller asks for
+        ``"cpu"``.
+
+    Returns int32[n] on `device`, a permutation of range(n).
+    """
+    impl = resolve_sort_impl(sort_impl)
+    dev = resolve_device(device)
+    if base_threshold is None:
+        base_threshold = 256
+    x = torch.as_tensor(x).to(device=dev, dtype=I64).reshape(-1)
+    n = len(x)
+    if n <= 1:
+        return torch.zeros(n, dtype=torch.int32, device=dev)
+
+    def rec(x: torch.Tensor, v: int, hi: int) -> torch.Tensor:
+        n = len(x)
+        if n <= max(base_threshold, v, 4):
+            return suffix_array_doubling_torch(x)
+        n_b = pad_bucket(n) if bucket else n
+        v = int(min(max(v, 3), n_b))
+        n_v = v * -(-n_b // v)
+        xp = _padded_text(x, n_v, v)
+        (sample_pos, inv_sample, in_D, shifts,
+         lam1, lam2) = _level_constants(n_v, v, dev)
+        m = len(sample_pos)
+        lo = -(n_v + 2 * v - n)
+
+        # --- ONE window sort feeds Step 1 AND Steps 2–4 ---
+        order, is_start, rep = _window_order(xp, n_v, v, lo, hi, impl)
+
+        # Step 1: sample ranks = the window order filtered to sample
+        # positions (a stable subsequence of a sorted sequence is sorted).
+        s_slots = _compact(in_D[order % v], m)
+        sp = order[s_slots]                       # sample pos, window-sorted
+        if impl == "kernel":
+            ranks_sorted, n_distinct = dense_rank_sorted(rep[s_slots])
+        else:
+            sb = torch.ones(m, dtype=torch.bool, device=dev)
+            sb[1:] = _rows_neq(rep, sp[1:], sp[:-1])
+            ranks_sorted = torch.cumsum(sb, 0) - 1
+            n_distinct = ranks_sorted[-1] + 1
+        n_distinct = int(n_distinct)
+        si = inv_sample[sp]
+        sa_rank = torch.empty(m, dtype=I64, device=dev)
+        if n_distinct == m:
+            sa_rank[si] = torch.arange(m, device=dev)
+        else:
+            xs = torch.empty(m, dtype=I64, device=dev)
+            xs[si] = ranks_sorted.long()
+            sa_sub = rec(xs, schedule(v, len(cover_tables(v).D), m),
+                         n_distinct - 1)
+            sa_rank[sa_sub] = torch.arange(m, device=dev)
+
+        # Steps 2–4: refine the shared window order with Lemma-1 ranks.
+        rank = torch.full((n_v + v,), -1, dtype=I64, device=dev)
+        rank[sample_pos] = sa_rank
+        sa_full = _resolve_ties(order, is_start, rank, shifts, lam1, lam2,
+                                v, n_v)
+        # Pad suffixes start below every real character, so all n_v - n of
+        # them come first and the real suffixes are the tail.
+        return sa_full[n_v - n:]
+
+    return rec(x, v, int(x.max())).to(torch.int32)
