@@ -10,20 +10,30 @@ Phases (any failure exits non-zero; no phase's exception is caught):
 1. Card: print `nvidia-smi`'s name and power limit, build the CUDA kernels
    from `src/repro_torch/kernels/csrc/` and print the build time.
 2. Kernel against plain: every kernel on the card against its plain PyTorch
-   version on the same inputs, int32 outputs equal element for element.
+   version on the same inputs, integer outputs equal element for element
+   (the radix histogram at the TPU kernel's test sweeps and at N = 2^24;
+   the scatter pass and the LSD argsort, also against stable `torch.sort`
+   passes).
 3. Main path at real size: a seeded corpus of 4,096 byte documents
    (sigma = 256, 14,667,776 encoded tokens; about 10% of the documents copy
    a 512-byte passage of another one) goes through
    `SuffixArrayIndex.from_docs` on the card with ``sort_impl="auto"``
-   (= "kernel"). Both kernels must have launched; the SA must pass an O(n)
-   check and equal the ``sort_impl="torch"`` build.
+   (= "kernel") and, path (A), with ``sort_impl="radix"``. Each build must
+   have launched exactly its path's kernels; the SA must pass an O(n) check
+   and every impl ("kernel", "radix", "torch") must give the same SA.
 4. Queries: 4,096 patterns of 32-512 tokens, half planted, through
    `count_batch` and `locate_batch`; every planted pattern hits, and 16
    counts equal a direct scan of the text on the card.
-5. Kernel times at the main path's level-0 shapes, beside their bounds,
+5. Sparse index, path (B): `from_docs` with ``sample_rate=16`` on the radix
+   kernels. Its SA must equal the dense SA restricted to multiples of 16;
+   on the phase-4 batch its counts and positions must equal the dense
+   index's; a 15-token pattern must raise `PatternTooShortError`;
+   `longest_match` of 4 planted sequences must equal the dense answer.
+6. Kernel times at the main path's level-0 shapes, beside their bounds,
    the plain versions and one PyTorch library call.
-6. Trace: one more kernel-path build under `torch.profiler`: device time
-   by kernel and the device's idle share of the build's wall time.
+7. Trace: one more kernel-path build and one radix build under
+   `torch.profiler`: device time by kernel and the device's idle share of
+   each build's wall time.
 
 Standard output ends with a JSON line of per-kernel numbers, the card's
 name and power limit, and ``{"ok": true, "device": {...}}``.
@@ -48,6 +58,13 @@ COPY_SHARE = 0.10
 N_PATTERNS = 4096
 N_SCANNED = 16
 SEED = 20261017
+SPARSE_RATE = 16
+N_LONGEST = 4
+
+#: kernels each path must launch, and no others.
+PATH_KERNELS = {"kernel": {"bitonic_stage", "seg_boundary"},
+                "radix": {"radix_hist", "radix_scatter"},
+                "sparse": {"radix_hist", "radix_scatter"}}
 
 #: HBM bandwidth (bytes/s) by card name, from NVIDIA's data sheets.
 DRAM_BYTES_PER_S = (("H200", 4.8e12), ("H100 NVL", 3.9e12),
@@ -112,6 +129,40 @@ def plain_seg(rows, num_keys=None, block=512):
     return ref.seg_boundary_ref(rows, num_keys, block)
 
 
+def zero_launches() -> None:
+    from repro_torch.kernels import ops
+    for key in ops.LAUNCHES:
+        ops.LAUNCHES[key] = 0
+
+
+def launched(dev, path: str, launches: dict) -> None:
+    """On the card, exactly the kernels of `path` must have launched."""
+    if dev.type == "cuda":
+        got = {k for k, v in launches.items() if v}
+        assert got == PATH_KERNELS[path], (path, launches)
+
+
+def scan_offsets(digits, n: int, block: int):
+    """The radix sort's per-pass offsets (`ref.lsd_argsort`): per-block
+    counts of the padded digits, scanned bin-major, on the plain version."""
+    import torch
+    from repro_torch.kernels import ref
+    nb = -(-n // block)
+    counts = ref.radix_histogram_ref(digits, 257, block)[:, :256]
+    flat = counts.t().reshape(-1)
+    return (torch.cumsum(flat, 0, dtype=torch.int32) - flat).view(256, nb)
+
+
+def pass_digits(keys, shift: int, block: int):
+    """int32 digits of one pass, padded to a whole block with bin 256."""
+    import torch
+    n = keys.shape[0]
+    digits = torch.full((-(-n // block) * block,), 256, dtype=torch.int32,
+                        device=keys.device)
+    digits[:n] = (keys >> shift) & 255
+    return digits
+
+
 def require_equal(name: str, got, want) -> int:
     """Exact equality of two integer tensors; returns the max abs error."""
     assert got.shape == want.shape and got.dtype == want.dtype, name
@@ -167,6 +218,56 @@ def kernels_against_plain(dev, scale: int = 1) -> None:
                     want, want_nd = ops.dense_rank_sorted(rows[:m], num_keys)
                 require_equal(f"dense_rank_sorted {kind} N={m}", got, want)
                 assert int(nd) == int(want_nd), kind
+    radix_against_plain(dev, scale)
+
+
+def radix_against_plain(dev, scale: int = 1) -> None:
+    import numpy as np
+    import torch
+    from repro_torch.core.dcv_torch import _order_from_words
+    from repro_torch.kernels import ops, ref
+    rng = np.random.default_rng(SEED + 7)
+    # the sweeps of tests/kernels/test_kernel_parity.py, then N = 2^24
+    hist_cases = [(rng.integers(0, bins, n), bins, block) for n, bins, block
+                  in ((1024, 256, 256), (2048, 8, 1024), (512, 2, 128),
+                      (4096, 128, 512), (256, 16, 256), (128, 1, 64))]
+    hist_cases += [
+        (np.full(1024, 5), 8, 256),                                # constant
+        (np.where(np.arange(2048) % 2 == 0, 0, 255), 256, 512),    # boundary
+        (np.repeat(np.arange(8), 256), 8, 256),                    # skewed
+        (rng.integers(0, 256, 2 ** 24 // scale), 256, 1024),
+        (np.full(2 ** 24 // scale, 7), 256, 1024)]
+    for digits, bins, block in hist_cases:
+        d = torch.from_numpy(np.asarray(digits, np.int32)).to(dev)
+        require_equal(f"radix_hist N={len(d)} bins={bins} block={block}",
+                      ops.radix_histogram_blocks(d, bins, block),
+                      ref.radix_histogram_ref(d, bins, block))
+    n = 2 ** 20 // scale + 333
+    for kind, keys in (("random", rng.integers(0, 2 ** 45, n)),
+                       ("constant", np.full(n, 9 << 16)),
+                       ("distinct", rng.permutation(n) << 16)):
+        keys = torch.from_numpy(keys.astype(np.int64)).to(dev)
+        for dtype in (torch.int32, torch.int64):
+            payload = torch.arange(n, dtype=dtype, device=dev)
+            offsets = scan_offsets(pass_digits(keys, 16, 1024), n, 1024)
+            for g, w in zip(ops.radix_scatter(keys, payload, 16, offsets),
+                            ref.radix_scatter_ref(keys, payload, 16, offsets,
+                                                  1024)):
+                require_equal(f"radix_scatter {kind} {dtype}", g, w)
+    for n in (2 ** 20 // scale, 2 ** 20 // scale + 333):
+        for kind, bits, words in (
+                ("1-word", 45, [rng.integers(0, 2 ** 45, n)]),
+                ("3-word", [12, 9, 3], [rng.integers(0, 40, n),
+                                        rng.integers(0, 512, n),
+                                        rng.integers(0, 8, n)]),
+                ("62-bit", 62, [rng.integers(0, 2 ** 62, n)])):
+            words = [torch.from_numpy(np.asarray(w, np.int64)).to(dev)
+                     for w in words]
+            got = ops.radix_argsort(words, bits)
+            require_equal(f"radix_argsort {kind} N={n}", got,
+                          ref.radix_argsort_ref(words, bits))
+            require_equal(f"radix_argsort {kind} N={n} (torch.sort)", got,
+                          _order_from_words(words))
 
 
 # --------------------------------------------------------------- phase 3
@@ -204,8 +305,7 @@ def main_path(dev, docs):
     import torch
     from repro_torch.api import SAOptions, SuffixArrayIndex, build_suffix_array
     from repro_torch.kernels import ops
-    for key in ops.LAUNCHES:
-        ops.LAUNCHES[key] = 0
+    zero_launches()
     sync(dev)
     t0 = time.perf_counter()
     idx = SuffixArrayIndex.from_docs(docs, SAOptions(), device=dev)
@@ -214,11 +314,27 @@ def main_path(dev, docs):
     launches = dict(ops.LAUNCHES)
     log(f"main path: from_docs n={idx.n} docs={idx.n_docs} "
         f"sort_impl=auto(kernel) build_s={t_kernel:.3f} launches={launches}")
-    if dev.type == "cuda":
-        assert all(v > 0 for v in launches.values()), launches
+    launched(dev, "kernel", launches)
     check_suffix_array(idx.text, idx.sa)
-    builds = {"kernel": [t_kernel], "torch": []}
-    for impl in ("torch", "kernel", "torch"):
+
+    # path (A): the same corpus on the radix window sort
+    zero_launches()
+    sync(dev)
+    t0 = time.perf_counter()
+    rdx = SuffixArrayIndex.from_docs(docs, SAOptions(sort_impl="radix"),
+                                     device=dev)
+    sync(dev)
+    t_radix = time.perf_counter() - t0
+    radix_launches = dict(ops.LAUNCHES)
+    log(f"path (A): from_docs sort_impl=radix build_s={t_radix:.3f} "
+        f"launches={radix_launches}")
+    launched(dev, "radix", radix_launches)
+    assert torch.equal(rdx.sa, idx.sa), "sort_impl=radix SA differs"
+    for key in ("radix_hist", "radix_scatter"):
+        launches[key] = radix_launches[key]
+
+    builds = {"kernel": [t_kernel], "radix": [t_radix], "torch": []}
+    for impl in ("torch", "radix", "kernel", "kernel", "radix", "torch"):
         sync(dev)
         t0 = time.perf_counter()
         sa = build_suffix_array(idx.text, SAOptions(sort_impl=impl),
@@ -226,8 +342,8 @@ def main_path(dev, docs):
         sync(dev)
         builds[impl].append(time.perf_counter() - t0)
         assert torch.equal(sa, idx.sa), f"sort_impl={impl} SA differs"
-    log(f"main path: SA passes the O(n) check; kernel and torch builds "
-        f"agree; build_s kernel={builds['kernel']} torch={builds['torch']}")
+    log(f"main path: SA passes the O(n) check; kernel, radix and torch "
+        f"builds agree; build_s {json.dumps(builds)}")
     return idx, launches, builds
 
 
@@ -275,10 +391,72 @@ def queries(dev, idx, docs, n_patterns: int, max_len: int = 512):
             for k, v in times.items()}
     log(f"queries: {n_patterns} patterns (half planted, all hit; "
         f"{N_SCANNED} scan-checked) {json.dumps(rate)}")
-    return rate
+    return rate, pats, counts, located
 
 
 # --------------------------------------------------------------- phase 5
+def sparse_path(dev, idx, docs, pats, counts, located) -> dict:
+    """Path (B): the sampled-position index of the same corpus."""
+    import numpy as np
+    import torch
+    from repro_torch.api import SAOptions, SuffixArrayIndex
+    from repro_torch.kernels import ops
+    from repro_torch.sparse import PatternTooShortError, SparseSuffixArrayIndex
+    zero_launches()
+    sync(dev)
+    t0 = time.perf_counter()
+    sp = SuffixArrayIndex.from_docs(
+        docs, SAOptions(sample_rate=SPARSE_RATE), device=dev)
+    sync(dev)
+    build_s = time.perf_counter() - t0
+    launches = dict(ops.LAUNCHES)
+    log(f"path (B): from_docs sample_rate={SPARSE_RATE} ns={sp.ns} "
+        f"build_s={build_s:.3f} launches={launches}")
+    assert type(sp) is SparseSuffixArrayIndex
+    launched(dev, "sparse", launches)
+    dense = idx.sa.long()
+    assert torch.equal(sp.sa.long(), dense[dense % SPARSE_RATE == 0]), \
+        "sparse SA is not the dense SA restricted to sampled positions"
+    times = {}
+    for run in ("first", "second"):
+        t0 = time.perf_counter()
+        sp_counts = sp.count_batch(pats)
+        times[f"count_{run}_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    sp_located = sp.locate_batch(pats)
+    times["locate_s"] = time.perf_counter() - t0
+    assert np.array_equal(sp_counts, counts), "sparse counts differ"
+    assert all(np.array_equal(a, b) for a, b in zip(sp_located, located)), \
+        "sparse positions differ"
+    try:
+        sp.count_batch([pats[0][:SPARSE_RATE - 1]])
+    except PatternTooShortError:
+        pass
+    else:
+        raise AssertionError("a 15-token pattern did not raise")
+    rng = np.random.default_rng(SEED + 2)
+    longest = []
+    for i in range(N_LONGEST):
+        d = docs[int(rng.integers(len(docs)))]
+        m = int(rng.integers(64, 256))
+        a = int(rng.integers(0, len(d) - m))
+        seq = np.concatenate([rng.integers(0, SIGMA, 40), d[a:a + m],
+                              rng.integers(0, SIGMA, 40)])
+        want = idx.longest_match(seq)
+        assert sp.longest_match(seq) == want >= m, (i, want, m)
+        longest.append(want)
+    out = {"build_s": build_s, "ns": sp.ns,
+           "sa_bytes": sp.sa.numel() * sp.sa.element_size(),
+           "dense_sa_bytes": idx.sa.numel() * idx.sa.element_size(),
+           "longest_match": longest, "launches": launches,
+           **{k[:-2] + "_patterns_per_s": len(pats) / v
+              for k, v in times.items()}}
+    log(f"path (B): sparse SA = dense SA at multiples of {SPARSE_RATE}; "
+        f"{len(pats)} counts and positions equal dense; {json.dumps(out)}")
+    return out
+
+
+# --------------------------------------------------------------- phase 6
 def kernel_times(dev, idx, launches, bandwidth: float):
     import torch
     from repro_torch.core import dcv_torch
@@ -331,7 +509,55 @@ def kernel_times(dev, idx, launches, bandwidth: float):
     seg_bytes = padded.numel() * 4 + 2 * padded.shape[0] * 4 \
         + padded.shape[0] // 512 * 4
 
+    # radix: one pass of the level-0 window word, then the whole argsort
+    from repro_torch.kernels import ref
+    bits = dcv_torch._word_bits(v, -(n_v + 2 * v - n), int(x.max()))
+    keys = words[0]
+    digits = pass_digits(keys, 0, 1024)
+    nb = digits.shape[0] // 1024
+    hist_ms = time_ms(lambda: ops.radix_histogram_blocks(digits, 257), dev,
+                      reps=10)
+    hist = ops.radix_histogram_blocks(digits, 257)
+    plain_hist_ms = time_ms(lambda: ref.radix_histogram_ref(digits, 257,
+                                                            1024), dev)
+    hist_err = require_equal("radix_hist level 0", hist,
+                             ref.radix_histogram_ref(digits, 257, 1024))
+    flat_ids = (torch.arange(len(digits), device=dev) // 1024) * 257 + digits
+    lib_hist_ms = time_ms(lambda: torch.bincount(flat_ids,
+                                                 minlength=nb * 257), dev,
+                          reps=10)
+    const = torch.full_like(digits, 7)
+    const_hist_ms = time_ms(lambda: ops.radix_histogram_blocks(const, 257),
+                            dev, reps=10)
+    hist_bytes = digits.numel() * 4 + hist.numel() * 4
+
+    offsets = scan_offsets(digits, n_v, 1024)
+    payload = torch.arange(n_v, dtype=torch.int32, device=dev)
+    scat_ms = time_ms(lambda: ops.radix_scatter(keys, payload, 0, offsets),
+                      dev, reps=10)
+    got = ops.radix_scatter(keys, payload, 0, offsets)
+    plain_scat_ms = time_ms(lambda: ref.radix_scatter_ref(
+        keys, payload, 0, offsets, 1024), dev)
+    want = ref.radix_scatter_ref(keys, payload, 0, offsets, 1024)
+    scat_err = max(require_equal("radix_scatter level 0", g, w)
+                   for g, w in zip(got, want))
+    scat_bytes = 2 * n_v * (8 + 4) + offsets.numel() * 4
+
+    argsort_ms = time_ms(lambda: ops.radix_argsort(words, bits), dev, reps=5)
+    order0 = ops.radix_argsort(words, bits)
+    plain_argsort_ms = time_ms(lambda: ref.radix_argsort_ref(words, bits),
+                               dev)
+    require_equal("radix_argsort level 0 (plain)", order0,
+                  ref.radix_argsort_ref(words, bits))
+    argsort_err = require_equal("radix_argsort level 0 (torch.sort)", order0,
+                                dcv_torch._order_from_words(words))
+    passes = sum(-(-b // 8) for b in bits)
+    argsort_bytes = n_v * 8 * (len(words) + 1)
+    log(f"level 0 radix: word bits {bits}, {passes} passes, "
+        f"{nb} blocks of 1024")
+
     src = "src/repro_torch/kernels/csrc/"
+    no_tpu = "src/repro/core/dcv_jax.py:170"
     return [
         {"name": "bitonic_stage", "route": "cuda",
          "source": src + "bitonic_stage.cu",
@@ -357,14 +583,48 @@ def kernel_times(dev, idx, launches, bandwidth: float):
                          "return_inverse=True)",
          "kernel_only_ms": seg_ms,
          "kernel_only_bound_ms": 1e3 * seg_bytes / bandwidth},
+        {"name": "radix_hist", "route": "cuda",
+         "source": src + "radix_hist.cu",
+         "replaces": "src/repro/kernels/radix_hist.py:20",
+         "launches": launches["radix_hist"], "max_abs_err": hist_err,
+         "function": f"per-block histograms of int32[{digits.numel()}] "
+                     f"level-0 digits, 257 bins (256 + pad), block 1024",
+         "ms": hist_ms, "plain_ms": plain_hist_ms,
+         "bound_ms": 1e3 * hist_bytes / bandwidth, "bound_by": "bytes",
+         "library_ms": lib_hist_ms,
+         "library_call": "torch.bincount(block_id * 257 + digit) on "
+                         "precomputed ids",
+         "constant_digits_ms": const_hist_ms},
+        {"name": "radix_scatter", "route": "cuda",
+         "source": src + "radix_scatter.cu", "replaces": no_tpu,
+         "replaces_note": "no TPU kernel: the JAX radix impl sorts on the "
+                          "host in numpy (_order_from_words)",
+         "launches": launches["radix_scatter"], "max_abs_err": scat_err,
+         "function": f"one stable 8-bit pass of int64[{n_v}] level-0 keys "
+                     f"with an int32 payload",
+         "ms": scat_ms, "plain_ms": plain_scat_ms,
+         "bound_ms": 1e3 * scat_bytes / bandwidth, "bound_by": "bytes",
+         "library_ms": None},
+        {"name": "radix_argsort", "route": "cuda",
+         "source": "src/repro_torch/kernels/ref.py (lsd_argsort) on "
+                   + src + "radix_hist.cu + radix_scatter.cu",
+         "replaces": no_tpu,
+         "replaces_note": "a driver of the two kernels above; its launches "
+                          "are those of radix_scatter (one per pass)",
+         "launches": launches["radix_scatter"], "max_abs_err": argsort_err,
+         "function": f"LSD argsort of the level-0 window word "
+                     f"(int64[{n_v}], {bits} bits, {passes} passes)",
+         "ms": argsort_ms, "plain_ms": plain_argsort_ms,
+         "bound_ms": 1e3 * argsort_bytes / bandwidth, "bound_by": "bytes",
+         "library_ms": lib_sort_ms, "library_call": lib_note},
     ]
 
 
-# --------------------------------------------------------------- phase 6
-def trace_build(dev, idx, top: int = 8) -> dict:
-    """Device time by kernel over one kernel-path build under
-    torch.profiler, and the device's idle share of its wall time (the
-    profiler's own host overhead is inside that wall time)."""
+# --------------------------------------------------------------- phase 7
+def trace_build(dev, idx, sort_impl: str = "auto", top: int = 8) -> dict:
+    """Device time by kernel over one build under torch.profiler, and the
+    device's idle share of its wall time (the profiler's own host overhead
+    is inside that wall time)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.api import SAOptions, build_suffix_array
@@ -374,7 +634,8 @@ def trace_build(dev, idx, top: int = 8) -> dict:
     sync(dev)
     with profile(activities=activities) as prof:
         t0 = time.perf_counter()
-        build_suffix_array(idx.text, SAOptions(), device=dev)
+        build_suffix_array(idx.text, SAOptions(sort_impl=sort_impl),
+                           device=dev)
         sync(dev)
         wall_ms = 1e3 * (time.perf_counter() - t0)
     by_name: dict[str, list] = {}
@@ -385,7 +646,7 @@ def trace_build(dev, idx, top: int = 8) -> dict:
             entry[1] += 1
     busy_ms = sum(ms for ms, _ in by_name.values())
     ranked = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:top]
-    return {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
+    return {"sort_impl": sort_impl, "wall_ms": wall_ms, "device_busy_ms": busy_ms,
             "device_idle_share": 1 - busy_ms / wall_ms if busy_ms else None,
             "top": [{"name": name[:90], "ms": ms, "count": count}
                     for name, (ms, count) in ranked]}
@@ -414,11 +675,13 @@ def main() -> int:
 
     docs = make_corpus(N_DOCS, DOC_LEN, SEED)
     idx, launches, builds = main_path(dev, docs)
-    rates = queries(dev, idx, docs, N_PATTERNS)
+    rates, pats, counts, located = queries(dev, idx, docs, N_PATTERNS)
+    sparse = sparse_path(dev, idx, docs, pats, counts, located)
     table = kernel_times(dev, idx, launches,
                          dram_bytes_per_s(torch.cuda.get_device_name(0)))
-    log(json.dumps({"builds_s": builds, "queries": rates}))
-    log(json.dumps({"trace": trace_build(dev, idx)}))
+    log(json.dumps({"builds_s": builds, "queries": rates, "sparse": sparse}))
+    for impl in ("auto", "radix"):
+        log(json.dumps({"trace": trace_build(dev, idx, impl)}))
     print(json.dumps({"kernels": table}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -82,6 +82,14 @@ def build_suffix_array(x, options: SAOptions | None = None, *,
     opts = options if options is not None else SAOptions()
     if overrides:
         opts = opts.replace(**overrides)
+    if opts.sample_rate > 1:
+        raise ValueError(
+            f"build_suffix_array builds the DENSE full-length suffix array "
+            f"(every registry backend's contract); sample_rate="
+            f"{opts.sample_rate} plans go through the facade — "
+            f"SuffixArrayIndex.build / .from_docs dispatch to "
+            f"repro_torch.sparse.SparseSuffixArrayIndex, or call "
+            f"repro_torch.sparse.build_sparse_suffix_array directly")
     dev = resolve_device(device)
     if isinstance(x, torch.Tensor):
         if x.is_floating_point() or x.is_complex() or x.dtype == torch.bool:

@@ -6,7 +6,9 @@ The port of `repro.api.index`:
 * `SuffixArrayIndex.from_docs(docs, options, device=)` — a multi-document
   corpus in the sentinel-separator layout (`encode_docs`: doc i ends with
   a unique separator of value i placed BELOW the shifted data alphabet,
-  so no suffix comparison crosses a document boundary);
+  so no suffix comparison crosses a document boundary). A plan with
+  ``sample_rate > 1`` builds a `repro_torch.sparse.SparseSuffixArrayIndex`
+  instead;
 * `index_from_numpy_state(state, device=)` — carry an index built
   elsewhere (text, sa, doc_starts, shift, sigma as numpy arrays and ints,
   e.g. those of a `repro.api.SuffixArrayIndex`) onto the device;
@@ -14,6 +16,8 @@ The port of `repro.api.index`:
   `locate_docs_batch` — many patterns, one vectorised search
   (`repro_torch.api.query`); `count` / `locate` / `locate_docs` are
   batches of one;
+* `longest_match` / `longest_match_len` — the longest substring of a
+  sequence that occurs in the index, by a binary search over lengths;
 * `ngram_stats`, `duplicate_spans`, `cross_doc_duplicates` — over the
   lazily computed LCP array (Kasai, numpy on the host).
 
@@ -38,6 +42,49 @@ from .options import SAOptions
 from .query import QueryBatch, batch_ranges
 
 INT32_MAX = 2 ** 31 - 1
+
+
+def longest_match_len(index, seq) -> int:
+    """Length of the longest substring of ``seq`` that occurs in ``index``.
+
+    Works against anything with ``contains_batch``. Feasibility is
+    monotone in the length (a substring's prefixes occur wherever it
+    does), so a binary search over lengths resolves the answer with
+    O(log |seq|) batched containment queries, each testing every window
+    of the probed length at once. Out-of-alphabet values in ``seq`` can
+    never match, so windows containing them are skipped, not errors.
+
+    Against an index with a minimum answerable pattern length (a sparse
+    index's ``min_pattern_len == sample_rate``), the search floors at that
+    length: matches shorter than the floor report 0, matches at or above
+    it are exact and equal to the dense answer.
+    """
+    seq = np.asarray(seq, np.int64).ravel()
+    if len(seq) == 0 or index.n == 0:
+        return 0
+    ok = (seq >= 0) & (seq < max(index.sigma, 1))
+
+    def feasible(m: int) -> bool:
+        wins = np.lib.stride_tricks.sliding_window_view(seq, m)
+        valid = np.flatnonzero(
+            np.lib.stride_tricks.sliding_window_view(ok, m).all(axis=1))
+        if not len(valid):
+            return False
+        return bool(np.any(index.contains_batch(list(wins[valid]))))
+
+    floor = int(getattr(index, "min_pattern_len", 0))
+    lo, hi = 0, len(seq)            # longest feasible is in [lo, hi]
+    if floor > 1:
+        if len(seq) < floor or not feasible(floor):
+            return 0                # any true match is below the floor
+        lo = floor
+    while lo < hi:
+        mid = (lo + hi + 1) // 2
+        if feasible(mid):
+            lo = mid
+        else:
+            hi = mid - 1
+    return lo
 
 
 def encode_docs(docs) -> tuple[np.ndarray, np.ndarray, int]:
@@ -90,9 +137,7 @@ class SuffixArrayIndex:
         self.device = resolve_device(device)
         self.text = torch.as_tensor(text).to(self.device, torch.int64)
         self.sa = torch.as_tensor(sa).to(self.device, torch.int32)
-        if self.sa.shape != self.text.shape:
-            raise ValueError(f"sa shape {tuple(self.sa.shape)} != text shape "
-                             f"{tuple(self.text.shape)}")
+        self._check_shapes()
         n = len(self.text)
         self.doc_starts = (np.asarray(doc_starts, np.int64)
                            if doc_starts is not None
@@ -103,6 +148,18 @@ class SuffixArrayIndex:
         self._sigma = None if sigma is None else int(sigma)
         self._device_bufs = None     # lazy (text int32, sa int64) for queries
         self._host = None            # lazy numpy (text, sa) for LCP methods
+
+    def _check_shapes(self) -> None:
+        """Text-vs-SA shape contract; `repro_torch.sparse` relaxes it to
+        ceil(n / s)."""
+        if self.sa.shape != self.text.shape:
+            raise ValueError(f"sa shape {tuple(self.sa.shape)} != text shape "
+                             f"{tuple(self.text.shape)}")
+
+    #: shortest pattern this index answers exactly; 0 = no restriction.
+    #: `repro_torch.sparse.SparseSuffixArrayIndex` overrides it with its
+    #: rate, and `longest_match_len` floors its probes at it.
+    min_pattern_len = 0
 
     # ----------------------------------------------------------- construct
     @classmethod
@@ -115,6 +172,11 @@ class SuffixArrayIndex:
         opts = options if options is not None else SAOptions()
         if overrides:
             opts = opts.replace(**overrides)
+        if opts.sample_rate > 1 and cls is SuffixArrayIndex:
+            # facade dispatch: a sampled plan builds the sparse subclass
+            from ..sparse import SparseSuffixArrayIndex
+            return SparseSuffixArrayIndex.build(text, opts, sigma=sigma,
+                                                device=device)
         text = torch.as_tensor(np.asarray(text, np.int64),
                                device=resolve_device(device))
         sa = build_suffix_array(text, opts, device=device)
@@ -129,6 +191,10 @@ class SuffixArrayIndex:
         opts = options if options is not None else SAOptions()
         if overrides:
             opts = opts.replace(**overrides)
+        if opts.sample_rate > 1 and cls is SuffixArrayIndex:
+            from ..sparse import SparseSuffixArrayIndex
+            return SparseSuffixArrayIndex.from_docs(docs, opts, sigma=sigma,
+                                                    device=device)
         text, starts, n_docs = encode_docs(docs)
         text = torch.as_tensor(text, device=resolve_device(device))
         sa = build_suffix_array(text, opts, device=device)
@@ -151,6 +217,10 @@ class SuffixArrayIndex:
     @property
     def n_docs(self) -> int:
         return len(self.doc_starts)
+
+    @property
+    def sep_count(self) -> int:
+        return self.shift          # one separator per document when encoded
 
     @property
     def sigma(self) -> int:
@@ -311,6 +381,11 @@ class SuffixArrayIndex:
         pos = self.locate(pattern)
         doc, off = self.doc_offset(pos)
         return np.stack([np.asarray(doc, np.int64), off], axis=1)
+
+    def longest_match(self, seq) -> int:
+        """Longest substring of ``seq`` occurring anywhere in the index
+        (`longest_match_len`)."""
+        return longest_match_len(self, seq)
 
     # ---------------------------------------------------------- statistics
     def ngram_stats(self, k: int) -> NgramStats:

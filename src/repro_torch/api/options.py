@@ -7,8 +7,7 @@ understand. The dataclass is frozen, so the builder cache in
 `repro_torch.api.build` can key configurations by its fields.
 
 What the port does not implement yet raises `NotImplementedError` here:
-``sample_rate > 1`` (sampled-position indexing) and the ``"radix"`` and
-``"bitonic"`` sort_impls.
+the ``"bitonic"`` sort_impl.
 """
 from __future__ import annotations
 
@@ -46,8 +45,9 @@ class SAOptions:
                     default (seq: 32, torch: 256).
     sort_impl:      the torch backend's window sort
                     (`repro_torch.core.compat`): ``"kernel"`` the Hopper
-                    kernels, ``"torch"`` stock `torch.sort`, ``"auto"`` →
-                    ``"kernel"``.
+                    kernels, ``"torch"`` stock `torch.sort`, ``"radix"``
+                    the LSD radix sort on the histogram and scatter
+                    kernels, ``"auto"`` → ``"kernel"``.
     cache:          enable the builder cache and bucketed shape padding in
                     `repro_torch.api.build`.
     mesh, axis, pack_keys, counters:
@@ -58,8 +58,10 @@ class SAOptions:
     segment_docs, compact_fanin:
                     serving-layer segmentation knobs, excluded from
                     `fingerprint()`.
-    sample_rate:    sampled-position indexing stride; only ``1`` (the dense
-                    suffix array) is ported.
+    sample_rate:    sampled-position indexing stride: ``1`` is the dense
+                    suffix array; ``s > 1`` makes `SuffixArrayIndex.build`
+                    / `.from_docs` build a `repro_torch.sparse` index of
+                    every s-th position.
     """
 
     backend: str = AUTO
@@ -95,10 +97,6 @@ class SAOptions:
         if self.sample_rate < 1:
             raise ValueError(
                 f"sample_rate must be ≥ 1, got {self.sample_rate}")
-        if self.sample_rate > 1:
-            raise NotImplementedError(
-                "sampled-position indexing (sample_rate > 1) is not ported "
-                "yet")
 
     @property
     def schedule_fn(self) -> Callable[[int, int, int], int]:

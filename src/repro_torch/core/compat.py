@@ -13,21 +13,25 @@ the CPU unless the caller asks for it with ``device="cpu"``.
             of the JAX package's "pallas".
 "torch"     stock `torch.sort(stable=True)` over packed int64 window keys,
             the counterpart of "lax"; the yardstick for "kernel".
+"radix"     packed int64 window words sorted by `radix_argsort` (the
+            counterpart of the JAX "radix"): an LSD radix sort on the
+            hand-written histogram and scatter kernels, their plain
+            versions on a CPU tensor.
 "auto"      resolves to "kernel" on every device.
 ==========  ==============================================================
 
-"radix" and "bitonic" are names of the JAX package that the port has not
-taken over yet; asking for them raises `NotImplementedError`.
+"bitonic" is a name of the JAX package that the port has not taken over
+yet; asking for it raises `NotImplementedError`.
 """
 from __future__ import annotations
 
 import torch
 
 #: accepted `sort_impl` values ("auto" resolves via `default_sort_impl`).
-SORT_IMPLS = ("auto", "torch", "kernel")
+SORT_IMPLS = ("auto", "torch", "kernel", "radix")
 
 #: reference names the port does not implement yet.
-NOT_PORTED_SORT_IMPLS = ("radix", "bitonic")
+NOT_PORTED_SORT_IMPLS = ("bitonic",)
 
 
 def resolve_device(device="cuda") -> torch.device:

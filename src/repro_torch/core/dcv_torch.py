@@ -21,7 +21,9 @@ after each refinement round, and the widest tie group.
 `sort_impl` picks the window sort (see `repro_torch.core.compat`):
 "kernel" sorts window rows with the bitonic kernel and ranks the samples
 with `dense_rank_sorted`; "torch" packs the window columns into int64
-words and sorts them with stable `torch.sort` passes.
+words and sorts them with stable `torch.sort` passes; "radix" sorts the
+same words with `radix_argsort`, the LSD radix sort on the histogram and
+scatter kernels. "torch" and "radix" rank the samples from the words.
 """
 from __future__ import annotations
 
@@ -31,7 +33,7 @@ import numpy as np
 import torch
 
 from ..kernels.ops import bitonic_sort as kernel_bitonic_sort
-from ..kernels.ops import dense_rank_sorted
+from ..kernels.ops import dense_rank_sorted, radix_argsort
 from .bitonic import bitonic_sort, next_pow2
 from .compat import resolve_device, resolve_sort_impl
 from .difference_cover import cover_tables
@@ -136,6 +138,15 @@ def _window_rows(xp: torch.Tensor, n_v: int, v: int) -> torch.Tensor:
     return rows
 
 
+def _word_bits(v: int, lo: int, hi: int) -> list[int]:
+    """Bit width of each word `_window_words` packs: `63 // bits` columns
+    of `bits` bits a word, the last word holding what is left."""
+    bits = max(1, int(hi - lo).bit_length())
+    per_word = max(1, 63 // bits)
+    return [bits * (min(start + per_word, v) - start)
+            for start in range(0, v, per_word)]
+
+
 def _window_words(xp: torch.Tensor, n_v: int, v: int, lo: int,
                   hi: int) -> list[torch.Tensor]:
     """Pack the v-character windows at positions [0, n_v) into int64 words.
@@ -143,7 +154,8 @@ def _window_words(xp: torch.Tensor, n_v: int, v: int, lo: int,
     Values (in [lo, hi]) are shifted to non-negative and packed
     most-significant-column-first, `63 // bits` columns per word (torch
     sorts signed int64 only, so the sign bit stays clear): comparing the
-    word list lexicographically equals comparing windows."""
+    word list lexicographically equals comparing windows. Word k is below
+    2**`_word_bits(v, lo, hi)[k]`."""
     bits = max(1, int(hi - lo).bit_length())
     per_word = max(1, 63 // bits)
     words = []
@@ -181,7 +193,7 @@ def _window_order(xp: torch.Tensor, n_v: int, v: int, lo: int, hi: int,
     sorts positions by (window, position); `is_start` marks the
     row-equality run boundaries along `order`. `sorted_rows` is the window
     matrix in sorted order (int32[n_v, v]) for "kernel" and the packed
-    words (position-indexed) for "torch".
+    words (position-indexed) for "torch" and "radix".
     """
     is_start = torch.ones(n_v, dtype=torch.bool, device=xp.device)
     if impl == "kernel":
@@ -190,7 +202,10 @@ def _window_order(xp: torch.Tensor, n_v: int, v: int, lo: int, hi: int,
         is_start[1:] = (srt[1:] != srt[:-1]).any(dim=1)
         return out[:, v].long(), is_start, srt
     words = _window_words(xp, n_v, v, lo, hi)
-    order = _order_from_words(words)
+    if impl == "radix":
+        order = radix_argsort(words, _word_bits(v, lo, hi))
+    else:
+        order = _order_from_words(words)
     is_start[1:] = _rows_neq(words, order[1:], order[:-1])
     return order, is_start, words
 

@@ -5,12 +5,18 @@
   window rows with `bitonic_sort` when ``sort_impl="kernel"``);
 * `seg_boundary` — block-local boundaries and prefix sums of sorted rows;
 * `dense_rank_sorted` — dense ranks of sorted rows: `seg_boundary` plus
-  a block stitch in PyTorch ops (the Step-1 sample ranking).
+  a block stitch in PyTorch ops (the Step-1 sample ranking);
+* `radix_histogram_blocks` / `radix_histogram` — per-block / global digit
+  histograms (`radix_hist.cu`);
+* `radix_scatter` — one stable 8-bit scatter pass (`radix_scatter.cu`);
+* `radix_argsort` — the stable LSD radix argsort of packed int64 words on
+  those two (``sort_impl="radix"`` window sorts, the sparse build).
 
 Each wrapper picks its path from the tensor it is given: a CUDA tensor
-runs the hand-written kernel (`bitonic_stage.cu`, `seg_boundary.cu`), a CPU
-tensor runs the plain version in `ref`. Any other device raises.
-`LAUNCHES` counts kernel launches by kernel name.
+runs the hand-written kernel (`bitonic_stage.cu`, `seg_boundary.cu`,
+`radix_hist.cu`, `radix_scatter.cu`), a CPU tensor runs the plain version
+in `ref`. Any other device raises. `LAUNCHES` counts kernel launches by
+kernel name.
 """
 from __future__ import annotations
 
@@ -19,10 +25,13 @@ import torch
 from . import ref
 from ._build import LAUNCHES
 from .bitonic_stage import bitonic_stage_cuda
+from .radix_hist import radix_histogram_cuda
+from .radix_scatter import radix_scatter_cuda
 from .seg_boundary import seg_boundary_cuda
 
 __all__ = ["LAUNCHES", "bitonic_sort", "bitonic_stage", "dense_rank_sorted",
-           "seg_boundary"]
+           "radix_argsort", "radix_histogram", "radix_histogram_blocks",
+           "radix_scatter", "seg_boundary"]
 
 
 def _on_cuda(t: torch.Tensor, op: str) -> bool:
@@ -109,3 +118,56 @@ def dense_rank_sorted(rows: torch.Tensor, num_keys: int | None = None,
         base = base - corr
     ranks = (base[:, None] + csum.view(nb, block) - 1).reshape(-1)[:n]
     return ranks, ranks[-1] + 1
+
+
+def radix_histogram_blocks(digits: torch.Tensor, n_bins: int,
+                           block: int = 1024) -> torch.Tensor:
+    """Per-block histograms of int32[N] digits in [0, n_bins):
+    int32[ceil(N / block), n_bins].
+
+    N is padded up to a multiple of `block` with the digit `n_bins`, which
+    the kernel counts in a scratch bin that is dropped (the pad rule of
+    `repro.kernels.ops.radix_histogram`)."""
+    pad = (-digits.shape[0]) % block
+    if pad:
+        digits = torch.cat([digits, digits.new_full((pad,), n_bins)])
+    bins = n_bins + (1 if pad else 0)
+    if _on_cuda(digits, "radix_hist"):
+        out = radix_histogram_cuda(digits, bins, block)
+    else:
+        out = ref.radix_histogram_ref(digits, bins, block)
+    return out[:, :n_bins] if pad else out
+
+
+def radix_histogram(digits: torch.Tensor, n_bins: int,
+                    block: int = 1024) -> torch.Tensor:
+    """Global histogram of int32[N] digits in [0, n_bins): int32[n_bins],
+    the sum of `radix_histogram_blocks` over blocks."""
+    return radix_histogram_blocks(digits, n_bins, block).sum(
+        0, dtype=torch.int32)
+
+
+def radix_scatter(keys: torch.Tensor, payload: torch.Tensor, shift: int,
+                  offsets: torch.Tensor, block: int = 1024, *,
+                  write_keys: bool = True):
+    """One stable 8-bit scatter pass; see `ref.radix_scatter_ref`.
+    Returns (keys_out or None, payload_out)."""
+    if _on_cuda(keys, "radix_scatter"):
+        return radix_scatter_cuda(keys, payload, shift, offsets, block,
+                                  write_keys=write_keys)
+    return ref.radix_scatter_ref(keys, payload, shift, offsets, block,
+                                 write_keys=write_keys)
+
+
+def radix_argsort(words, key_bits, block: int = 1024) -> torch.Tensor:
+    """Stable LSD radix argsort of a list of int64 words, most significant
+    first (each non-negative and below 2**key_bits; `key_bits` one int or
+    one per word): int64[N] positions sorted by (words..., position).
+
+    ceil(key_bits / 8) passes a word, each one `radix_histogram_blocks`,
+    an exclusive scan of the counts and one `radix_scatter`
+    (`ref.lsd_argsort`). On a CUDA tensor every pass runs the two kernels;
+    nothing falls back to a library sort."""
+    _on_cuda(words[0], "radix_argsort")
+    return ref.lsd_argsort(words, key_bits, radix_histogram_blocks,
+                           radix_scatter, block)

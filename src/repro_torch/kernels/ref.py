@@ -1,12 +1,23 @@
 """Plain PyTorch versions of the kernels in `repro_torch.kernels`.
 
-One per kernel, with the contracts of `repro.kernels.ref`. They run on any
-device: the CPU path of every wrapper in `repro_torch.kernels.ops` runs
-them, and on the card they are what each kernel is held against.
+One per kernel, with the contracts of `repro.kernels.ref` where the TPU
+kernel has one. They run on any device: the CPU path of every wrapper in
+`repro_torch.kernels.ops` runs them, and on the card they are what each
+kernel is held against. `lsd_argsort` is the LSD radix sort's driver,
+shared by `radix_argsort_ref` (these plain versions) and
+`ops.radix_argsort` (the kernels on a CUDA tensor).
 """
 from __future__ import annotations
 
+from collections.abc import Callable, Sequence
+
 import torch
+
+#: one LSD pass sorts this many key bits: 256 digits.
+RADIX_BITS = 8
+RADIX_BINS = 1 << RADIX_BITS
+#: elements per block of the radix sort's histogram and scatter passes.
+SORT_BLOCK = 1024
 
 
 def _lex_lt(a: torch.Tensor, b: torch.Tensor, num_keys: int) -> torch.Tensor:
@@ -63,3 +74,110 @@ def seg_boundary_ref(rows: torch.Tensor, num_keys: int | None = None,
     csum = torch.cumsum(neq, dim=1, dtype=torch.int32).reshape(-1)
     totals = neq.sum(dim=1, dtype=torch.int32)
     return flags, csum, totals
+
+
+def radix_histogram_ref(digits: torch.Tensor, n_bins: int,
+                        block: int) -> torch.Tensor:
+    """Per-block histograms: int32[N] digits, N a multiple of `block` ->
+    int32[N // block, n_bins], row b counting block b's digits equal to each
+    bin. Digits outside [0, n_bins) count nowhere (the one-hot rule of
+    `repro.kernels.ref.radix_histogram_ref`)."""
+    n = digits.shape[0]
+    if n % block:
+        raise ValueError(f"radix_histogram_ref: N={n} is not a multiple of "
+                         f"block={block}")
+    nb = n // block
+    pos = torch.arange(n, device=digits.device)
+    valid = (digits >= 0) & (digits < n_bins)
+    slot = torch.where(valid, pos // block * n_bins + digits, nb * n_bins)
+    out = torch.zeros(nb * n_bins + 1, dtype=torch.int32,
+                      device=digits.device)
+    out.scatter_add_(0, slot, torch.ones_like(digits, dtype=torch.int32))
+    return out[:-1].view(nb, n_bins)
+
+
+def radix_scatter_ref(keys: torch.Tensor, payload: torch.Tensor, shift: int,
+                      offsets: torch.Tensor, block: int, *,
+                      write_keys: bool = True):
+    """One stable counting pass by the digit d = (key >> shift) & 255.
+
+    Element i goes to ``offsets[d, i // block]`` plus its rank among the
+    elements before it in its block with the same digit; `offsets` is
+    int[256, ceil(N / block)]. Step by step: a stable sort by (digit, block)
+    lists every (digit, block) group in element order, so an element's rank
+    in its group is its sorted slot minus the group's first slot. Returns
+    (keys_out or None, payload_out)."""
+    n = keys.shape[0]
+    nb = -(-n // block)
+    pos = torch.arange(n, device=keys.device)
+    group = ((keys >> shift) & (RADIX_BINS - 1)) * nb + pos // block
+    grp_sorted, by_group = torch.sort(group, stable=True)
+    rank = pos - torch.searchsorted(grp_sorted, grp_sorted)
+    dest = torch.empty_like(pos)
+    dest[by_group] = offsets.reshape(-1)[grp_sorted].long() + rank
+    payload_out = torch.empty_like(payload)
+    payload_out[dest] = payload
+    if not write_keys:
+        return None, payload_out
+    keys_out = torch.empty_like(keys)
+    keys_out[dest] = keys
+    return keys_out, payload_out
+
+
+def lsd_argsort(words: Sequence[torch.Tensor], key_bits,
+                block_hist: Callable, scatter: Callable,
+                block: int = SORT_BLOCK) -> torch.Tensor:
+    """Stable LSD radix argsort of int64 word lists, most significant word
+    first: the order that sorts positions by (words[0], words[1], ...,
+    position).
+
+    Every word must be non-negative and below 2**key_bits (`key_bits` is
+    one int for all words or one per word, at most 63), so the pass count,
+    ceil(key_bits / 8) per word, is known on the host. Each pass takes its
+    8-bit digit with elementwise ops, counts the digits of each `block`
+    with ``block_hist(digits, n_bins, block)`` (a scratch bin 256 holds the
+    padding of the last block), scans the counts in bin-major, block-minor
+    order into start offsets, and moves keys and an int32 position payload
+    with ``scatter(keys, payload, shift, offsets, block, write_keys=)``.
+    Returns int64[N] on the words' device."""
+    n = words[0].shape[0]
+    device = words[0].device
+    bits = ([int(key_bits)] * len(words) if isinstance(key_bits, int)
+            else [int(b) for b in key_bits])
+    if len(bits) != len(words) or any(not 0 <= b <= 63 for b in bits):
+        raise ValueError(f"key_bits {key_bits} must give each of the "
+                         f"{len(words)} words a width in [0, 63]")
+    if n >= 2 ** 31:
+        raise ValueError(f"lsd_argsort: N={n} needs int32 positions")
+    order = torch.arange(n, dtype=torch.int32, device=device)
+    if n <= 1:
+        return order.long()
+    nb = -(-n // block)
+    digits = torch.full((nb * block,), RADIX_BINS, dtype=torch.int32,
+                        device=device)
+    n_bins = RADIX_BINS + (1 if nb * block > n else 0)
+    first = True
+    for word, width in zip(reversed(words), reversed(bits)):
+        passes = -(-width // RADIX_BITS)
+        if not passes:
+            continue
+        keys = word.contiguous() if first else word[order]
+        first = False
+        for p in range(passes):
+            shift = p * RADIX_BITS
+            digits[:n] = (keys >> shift) & (RADIX_BINS - 1)
+            counts = block_hist(digits, n_bins, block)[:, :RADIX_BINS]
+            flat = counts.t().reshape(-1)
+            offsets = (torch.cumsum(flat, 0, dtype=torch.int32)
+                       - flat).view(RADIX_BINS, nb)
+            keys, order = scatter(keys, order, shift, offsets, block,
+                                  write_keys=p + 1 < passes)
+    return order.long()
+
+
+def radix_argsort_ref(words: Sequence[torch.Tensor], key_bits,
+                      block: int = SORT_BLOCK) -> torch.Tensor:
+    """`ops.radix_argsort` on the plain versions: the same LSD driver
+    (`lsd_argsort`) with `radix_histogram_ref` and `radix_scatter_ref`."""
+    return lsd_argsort(words, key_bits, radix_histogram_ref,
+                       radix_scatter_ref, block)

@@ -24,6 +24,7 @@ from repro_torch.api import (SAOptions, build_suffix_array,
                              builder_cache_stats, clear_builder_cache,
                              registered_backends)
 from repro_torch.core import dcv_torch
+from repro_torch.core.compat import resolve_sort_impl
 from repro_torch.core.dcv_torch import suffix_array_torch
 
 REPO = Path(__file__).resolve().parent.parent
@@ -52,7 +53,7 @@ def _text(family: str, n: int) -> np.ndarray:
 # ------------------------------------------------------ suffix array parity
 @pytest.mark.parametrize("family", sorted(FAMILIES))
 @pytest.mark.parametrize("n", [300, 2500])
-@pytest.mark.parametrize("impl", ["kernel", "torch"])
+@pytest.mark.parametrize("impl", ["kernel", "torch", "radix"])
 @pytest.mark.parametrize("bucket", [False, True])
 def test_suffix_array_matches_jax(family, n, impl, bucket):
     x = _text(family, n)
@@ -71,7 +72,7 @@ def test_suffix_array_matches_jax_pallas():
     np.testing.assert_array_equal(got.numpy(), want)
 
 
-@pytest.mark.parametrize("impl", ["kernel", "torch"])
+@pytest.mark.parametrize("impl", ["kernel", "torch", "radix"])
 @pytest.mark.parametrize("layout", ["top", "bottom_top"])
 def test_wide_alphabet_matches_jax(impl, layout):
     # hi - lo near 2^31: one window column per packed int64 word on the
@@ -96,6 +97,33 @@ def test_window_words_keep_the_sign_bit_clear():
     assert all(bool((w >= 0).all()) for w in words)
     small = dcv_torch._window_words(x.clamp(max=9), 6, 3, 0, 9)
     assert len(small) == 1                   # 4 bits: all three in one word
+
+
+@pytest.mark.parametrize("family", sorted(FAMILIES))
+@pytest.mark.parametrize("v", [3, 7])
+def test_radix_window_order_equals_torch(family, v):
+    # the radix order itself, not only the SA: equal windows stay in
+    # position order, as the stable torch.sort passes keep them
+    x = torch.as_tensor(_text(family, 1500))
+    n_v = v * -(-len(x) // v)
+    xp = dcv_torch._padded_text(x, n_v, v)
+    lo, hi = -(n_v + 2 * v - len(x)), int(x.max())
+    got = dcv_torch._window_order(xp, n_v, v, lo, hi, "radix")
+    want = dcv_torch._window_order(xp, n_v, v, lo, hi, "torch")
+    for g, w in zip(got[:2], want[:2]):
+        assert torch.equal(g, w)
+
+
+def test_word_bits_match_the_packing():
+    for lo, hi, v in ((0, 9, 3), (-4, 2 ** 31 - 1, 3), (-12_295, 4_351, 3),
+                      (-7, 300, 20)):
+        x = (torch.arange(4 * v, dtype=torch.int64) + lo).clamp(max=hi)
+        x[v:2 * v] = hi                      # a window of maxima
+        words = dcv_torch._window_words(x, 2 * v, v, lo, hi)
+        bits = dcv_torch._word_bits(v, lo, hi)
+        assert len(bits) == len(words)
+        assert all(int(w.max()) < 2 ** b for w, b in zip(words, bits))
+    assert dcv_torch._word_bits(3, -12_295, 4_351) == [45]   # level 0
 
 
 @pytest.mark.parametrize("n", [2, 3, 17, 200, 256])
@@ -176,14 +204,16 @@ def test_builder_cache_shares_bucketed_plans():
 
 def test_options_validation_and_fingerprint():
     assert registered_backends() == ("bsp", "oracle", "seq", "torch")
-    for impl in ("radix", "bitonic"):
-        with pytest.raises(NotImplementedError):
-            SAOptions(sort_impl=impl)
+    with pytest.raises(NotImplementedError):
+        SAOptions(sort_impl="bitonic")
     for impl in ("lax", "pallas", "quantum"):
         with pytest.raises(ValueError, match="sort_impl"):
             SAOptions(sort_impl=impl)
-    with pytest.raises(NotImplementedError):
-        SAOptions(sample_rate=4)
+    assert SAOptions(sort_impl="radix").sort_impl == "radix"
+    assert resolve_sort_impl("auto") == "kernel"
+    assert SAOptions(sample_rate=4).fingerprint().endswith("|rate=4")
+    with pytest.raises(ValueError):
+        SAOptions(sample_rate=0)
     with pytest.raises(ValueError):
         SAOptions(v0=2)
     with pytest.raises(NotImplementedError):

@@ -10,9 +10,10 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.api import SuffixArrayIndex
-from repro_torch.core.dcv_torch import suffix_array_torch
+from repro_torch.api import SAOptions, SuffixArrayIndex
+from repro_torch.core.dcv_torch import _order_from_words, suffix_array_torch
 from repro_torch.kernels import ops, ref
+from repro_torch.sparse import build_sparse_suffix_array
 
 pytestmark = pytest.mark.gpu
 
@@ -88,7 +89,9 @@ def test_small_build_goes_through_the_kernels(cuda):
     for key in ops.LAUNCHES:
         ops.LAUNCHES[key] = 0
     idx = SuffixArrayIndex.from_docs(docs, device=cuda)
-    assert all(v > 0 for v in ops.LAUNCHES.values())
+    # the "kernel" path's two kernels launched, the radix ones did not
+    assert {k for k, v in ops.LAUNCHES.items() if v} == {"bitonic_stage",
+                                                          "seg_boundary"}
     cpu = SuffixArrayIndex.from_docs(docs, device="cpu")
     torch.testing.assert_close(idx.sa.cpu(), cpu.sa, rtol=0, atol=0)
     x = np.asarray(idx.text.cpu())
@@ -99,4 +102,101 @@ def test_small_build_goes_through_the_kernels(cuda):
     np.testing.assert_array_equal(idx.count_batch(pats),
                                   cpu.count_batch(pats))
     for a, b in zip(idx.locate_batch(pats[:-1]), cpu.locate_batch(pats[:-1])):
+        np.testing.assert_array_equal(a, b)
+
+
+# ------------------------------------------------------------- radix sort
+@pytest.mark.parametrize("n,bins,block", [
+    (1024, 256, 256), (2048, 8, 1024), (512, 2, 128), (4096, 128, 512),
+    (256, 16, 256), (128, 1, 64), (2 ** 20, 257, 1024), (999, 8, 128)])
+def test_radix_hist_kernel_matches_plain(cuda, n, bins, block):
+    rng = np.random.default_rng(n + bins)
+    d = torch.from_numpy(rng.integers(0, bins, n).astype(np.int32))
+    for digits in (d, torch.full_like(d, bins - 1), torch.zeros_like(d)):
+        got = ops.radix_histogram_blocks(digits.to(cuda), bins, block)
+        want = ops.radix_histogram_blocks(digits, bins, block)   # plain, CPU
+        torch.testing.assert_close(got.cpu(), want, rtol=0, atol=0)
+    if n % block == 0:
+        got = ops.radix_histogram_blocks(d.to(cuda), bins, block)
+        torch.testing.assert_close(
+            got, ref.radix_histogram_ref(d.to(cuda), bins, block), rtol=0,
+            atol=0)
+
+
+@pytest.mark.parametrize("kind", ["random", "constant", "distinct"])
+@pytest.mark.parametrize("n,block", [(1000, 256), (70_001, 1024),
+                                     (4096, 2048)])
+@pytest.mark.parametrize("payload_dtype", [torch.int32, torch.int64])
+def test_radix_scatter_kernel_matches_plain(cuda, kind, n, block,
+                                            payload_dtype):
+    rng = np.random.default_rng(n)
+    keys = torch.from_numpy({
+        "random": rng.integers(0, 2 ** 40, n),
+        "constant": np.full(n, 3 << 24),
+        "distinct": rng.permutation(n) << 24}[kind].astype(np.int64))
+    shift = 24
+    nb = -(-n // block)
+    digits = torch.full((nb * block,), 256, dtype=torch.int32)
+    digits[:n] = (keys >> shift) & 255
+    counts = ref.radix_histogram_ref(digits, 257, block)[:, :256]
+    flat = counts.t().reshape(-1)
+    offsets = (torch.cumsum(flat, 0, dtype=torch.int32) - flat).view(256, nb)
+    payload = torch.arange(n, dtype=payload_dtype)
+    want = ref.radix_scatter_ref(keys, payload, shift, offsets, block)
+    got = ops.radix_scatter(keys.to(cuda), payload.to(cuda), shift,
+                            offsets.to(cuda), block)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g.cpu(), w, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("n", [1, 1024, 1025, 300_000])
+@pytest.mark.parametrize("kind", ["one_word", "three_words", "62bit"])
+def test_radix_argsort_kernels_match_stable_sort_passes(cuda, n, kind):
+    rng = np.random.default_rng(n + len(kind))
+    if kind == "one_word":
+        bits, words = 45, [rng.integers(0, 2 ** 45, n)]
+    elif kind == "three_words":
+        bits, words = [20, 9, 2], [rng.integers(0, 50, n),
+                                   rng.integers(0, 512, n),
+                                   rng.integers(0, 4, n)]
+    else:
+        bits, words = 62, [rng.integers(0, 2 ** 62, n)]
+    words = [torch.from_numpy(np.asarray(w, np.int64)).to(cuda)
+             for w in words]
+    before = ops.LAUNCHES["radix_scatter"]
+    got = ops.radix_argsort(words, bits)
+    if n > 1:
+        assert ops.LAUNCHES["radix_scatter"] > before
+    torch.testing.assert_close(got, _order_from_words(words), rtol=0, atol=0)
+    torch.testing.assert_close(got, ref.radix_argsort_ref(words, bits),
+                               rtol=0, atol=0)
+
+
+def test_small_radix_and_sparse_builds_match_cpu(cuda):
+    rng = np.random.default_rng(5)
+    docs = [rng.integers(0, 6, 2500) for _ in range(4)]
+    docs.append(docs[1][200:1200])
+    for key in ops.LAUNCHES:
+        ops.LAUNCHES[key] = 0
+    radix = SuffixArrayIndex.from_docs(docs, SAOptions(sort_impl="radix"),
+                                       device=cuda)
+    assert {k for k, v in ops.LAUNCHES.items() if v} == {"radix_hist",
+                                                          "radix_scatter"}
+    cpu = SuffixArrayIndex.from_docs(docs, SAOptions(sort_impl="radix"),
+                                     device="cpu")
+    torch.testing.assert_close(radix.sa.cpu(), cpu.sa, rtol=0, atol=0)
+    for key in ops.LAUNCHES:
+        ops.LAUNCHES[key] = 0
+    sparse = SuffixArrayIndex.from_docs(docs, SAOptions(sample_rate=8),
+                                        device=cuda)
+    assert ops.LAUNCHES["radix_hist"] > 0 and ops.LAUNCHES["radix_scatter"] > 0
+    sparse_cpu = build_sparse_suffix_array(cpu.text, 8, device="cpu")
+    torch.testing.assert_close(sparse.sa.cpu(), sparse_cpu, rtol=0, atol=0)
+    dense = cpu.sa.long()
+    torch.testing.assert_close(sparse_cpu.long(), dense[dense % 8 == 0],
+                               rtol=0, atol=0)
+    pats = [d[50:80] for d in docs]
+    np.testing.assert_array_equal(sparse.count_batch(pats),
+                                  cpu.count_batch(pats))
+    for a, b in zip(sparse.locate_batch(pats), cpu.locate_batch(pats)):
         np.testing.assert_array_equal(a, b)
