@@ -11,8 +11,11 @@ Phases (any failure exits non-zero; no phase's exception is caught):
    from `src/repro_torch/kernels/csrc/` and print the build time.
 2. Kernel against plain: every kernel on the card against its plain PyTorch
    version on the same inputs, integer outputs equal element for element
-   (the radix histogram at the TPU kernel's test sweeps and at N = 2^24;
-   the scatter pass and the LSD argsort, also against stable `torch.sort`
+   (the one-stage bitonic kernel; every launch of the shared-memory sort's
+   schedule, tile and cross-tile, at W = 3 .. 187 and N below, at and above
+   the tile, keys total or a tied prefix; the radix histogram at the TPU
+   kernel's test sweeps and at N = 2^24; the scatter pass at blocks of
+   1,024 and 4,096 and the LSD argsort, also against stable `torch.sort`
    passes).
 3. Main path at real size: a seeded corpus of 4,096 byte documents
    (sigma = 256, 14,667,776 encoded tokens; about 10% of the documents copy
@@ -30,7 +33,10 @@ Phases (any failure exits non-zero; no phase's exception is caught):
    index's; a 15-token pattern must raise `PatternTooShortError`;
    `longest_match` of 4 planted sequences must equal the dense answer.
 6. Kernel times at the main path's level-0 shapes, beside their bounds,
-   the plain versions and one PyTorch library call.
+   the plain versions and one PyTorch library call; the bitonic row sort at
+   every level of one "kernel" build (the real window rows of each level),
+   beside its bound, its launch count, the one-stage-per-launch schedule
+   and `torch.sort` of the level's packed words.
 7. Trace: one more kernel-path build and one radix build under
    `torch.profiler`: device time by kernel and the device's idle share of
    each build's wall time.
@@ -62,7 +68,7 @@ SPARSE_RATE = 16
 N_LONGEST = 4
 
 #: kernels each path must launch, and no others.
-PATH_KERNELS = {"kernel": {"bitonic_stage", "seg_boundary"},
+PATH_KERNELS = {"kernel": {"bitonic_tile", "bitonic_cross", "seg_boundary"},
                 "radix": {"radix_hist", "radix_scatter"},
                 "sparse": {"radix_hist", "radix_scatter"}}
 
@@ -117,11 +123,44 @@ def sync(dev) -> None:
         torch.cuda.synchronize(dev)
 
 
-def plain_stage(rows, k, j, num_keys=None, *, inplace=False):
-    """`ops.bitonic_stage` on the plain version, on any device."""
+def plain_launch(rows, launch, num_keys=None, *, inplace=False):
+    """`ops.bitonic_launch` on the plain version, on any device."""
     from repro_torch.kernels import ref
-    out = ref.bitonic_stage_ref(rows, k, j, num_keys)
+    out = ref.bitonic_stages_ref(rows, launch.stages(), num_keys)
     return rows.copy_(out) if inplace else out
+
+
+def stage_sort(rows):
+    """The full sort as one `bitonic_stage` launch per stage: the yardstick
+    the fused launches of `ops.bitonic_sort` are timed against."""
+    from repro_torch.kernels import ops
+    n = rows.shape[0]
+    out = rows.clone()
+    k = 2
+    while k <= n:
+        j = k // 2
+        while j >= 1:
+            ops.bitonic_stage(out, k, j, inplace=True)
+            j //= 2
+        k *= 2
+    return out
+
+
+def timed_once(fn, dev):
+    """(milliseconds, result) of one call of fn(), without a warm-up."""
+    import torch
+    sync(dev)
+    if dev.type == "cuda":
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = fn()
+        end.record()
+        torch.cuda.synchronize(dev)
+        return start.elapsed_time(end), out
+    t0 = time.perf_counter()
+    out = fn()
+    return 1e3 * (time.perf_counter() - t0), out
 
 
 def plain_seg(rows, num_keys=None, block=512):
@@ -194,10 +233,13 @@ def kernels_against_plain(dev, scale: int = 1) -> None:
         rows[:, 3] = torch.from_numpy(
             rng.permutation(n).astype(np.int32)).to(dev)
         got = ops.bitonic_sort(rows)
-        with mock.patch.object(ops, "bitonic_stage", plain_stage):
+        with mock.patch.object(ops, "bitonic_launch", plain_launch):
             require_equal(f"bitonic_sort N={n}", got, ops.bitonic_sort(rows))
         require_equal(f"bitonic_sort N={n} (oracle)", got,
                       ref.bitonic_sort_ref(rows))
+        require_equal(f"bitonic_sort N={n} (one stage a launch)", got,
+                      stage_sort(rows))
+    bitonic_launches_against_plain(dev, rng)
     n = 65536 // scale
     cases = {
         "random": ref.bitonic_sort_ref(torch.from_numpy(
@@ -221,6 +263,35 @@ def kernels_against_plain(dev, scale: int = 1) -> None:
     radix_against_plain(dev, scale)
 
 
+def bitonic_launches_against_plain(dev, rng) -> None:
+    """Every launch of the shared-memory sort's schedule against its stages
+    applied one by one on the plain version: the window widths of the main
+    path's levels and of repetitive texts, N below, at and above the tile,
+    keys total or a tied prefix (where the copy rule acts)."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import bitonic_sort as bsort
+    from repro_torch.kernels import ops
+    checked = 0
+    for w in (3, 4, 5, 6, 9, 15, 66, 187):
+        t = bsort.tile_rows(2 ** 30, w)
+        for n in (t // 2, t, 4 * t):
+            for keys in ("all", "prefix"):
+                hi = 2 if keys == "prefix" else 50
+                num_keys = w if keys == "all" else max(1, w // 3)
+                cur = torch.from_numpy(
+                    rng.integers(-hi, hi, (n, w)).astype(np.int32)).to(dev)
+                for launch in bsort.schedule(n, w):
+                    want = plain_launch(cur, launch, num_keys)
+                    require_equal(f"bitonic_{launch.kind} W={w} N={n} "
+                                  f"k={launch.k_first} j={launch.j_hi}",
+                                  ops.bitonic_launch(cur, launch, num_keys),
+                                  want)
+                    cur = want
+                    checked += 1
+    log(f"bitonic launches against plain: {checked} launches equal")
+
+
 def radix_against_plain(dev, scale: int = 1) -> None:
     import numpy as np
     import torch
@@ -242,18 +313,25 @@ def radix_against_plain(dev, scale: int = 1) -> None:
         require_equal(f"radix_hist N={len(d)} bins={bins} block={block}",
                       ops.radix_histogram_blocks(d, bins, block),
                       ref.radix_histogram_ref(d, bins, block))
-    n = 2 ** 20 // scale + 333
-    for kind, keys in (("random", rng.integers(0, 2 ** 45, n)),
-                       ("constant", np.full(n, 9 << 16)),
-                       ("distinct", rng.permutation(n) << 16)):
-        keys = torch.from_numpy(keys.astype(np.int64)).to(dev)
-        for dtype in (torch.int32, torch.int64):
-            payload = torch.arange(n, dtype=dtype, device=dev)
-            offsets = scan_offsets(pass_digits(keys, 16, 1024), n, 1024)
-            for g, w in zip(ops.radix_scatter(keys, payload, 16, offsets),
+    for n in (2 ** 20 // scale, 2 ** 20 // scale + 333):
+        skewed = np.where(rng.random(n) < 0.9, 0, rng.integers(0, 256, n))
+        for kind, keys in (("random", rng.integers(0, 2 ** 45, n)),
+                           ("constant", np.full(n, 9 << 16)),
+                           ("skewed", skewed << 16),
+                           ("distinct", rng.permutation(n) << 16)):
+            keys = torch.from_numpy(keys.astype(np.int64)).to(dev)
+            for dtype in (torch.int32, torch.int64):
+                payload = torch.arange(n, dtype=dtype, device=dev)
+                for block in (1024, ref.SORT_BLOCK):
+                    offsets = scan_offsets(pass_digits(keys, 16, block), n,
+                                           block)
+                    for g, w in zip(
+                            ops.radix_scatter(keys, payload, 16, offsets,
+                                              block),
                             ref.radix_scatter_ref(keys, payload, 16, offsets,
-                                                  1024)):
-                require_equal(f"radix_scatter {kind} {dtype}", g, w)
+                                                  block)):
+                        require_equal(f"radix_scatter {kind} {dtype} N={n} "
+                                      f"block={block}", g, w)
     for n in (2 ** 20 // scale, 2 ** 20 // scale + 333):
         for kind, bits, words in (
                 ("1-word", 45, [rng.integers(0, 2 ** 45, n)]),
@@ -457,37 +535,225 @@ def sparse_path(dev, idx, docs, pats, counts, located) -> dict:
 
 
 # --------------------------------------------------------------- phase 6
-def kernel_times(dev, idx, launches, bandwidth: float):
+def window_levels(dev, text) -> list:
+    """(xp, n_v, v, lo, hi) of every level's window sort in one "kernel"
+    build of `text`: the inputs the main path's row sort gets."""
+    from repro_torch.api import SAOptions, build_suffix_array
+    from repro_torch.core import dcv_torch
+    seen = []
+    window_order = dcv_torch._window_order
+
+    def record(xp, n_v, v, lo, hi, impl):
+        seen.append((xp, n_v, v, lo, hi))
+        return window_order(xp, n_v, v, lo, hi, impl)
+
+    with mock.patch.object(dcv_torch, "_window_order", record):
+        build_suffix_array(text, SAOptions(sort_impl="kernel"), device=dev)
+    return seen
+
+
+def library_sort(words):
+    """One PyTorch library sort of a level's packed window words, and what
+    it is."""
     import torch
     from repro_torch.core import dcv_torch
+    if len(words) == 1:
+        return (lambda: torch.sort(words[0], stable=True),
+                "torch.sort(stable=True) of the packed int64 window key")
+    return (lambda: dcv_torch._order_from_words(words),
+            f"{len(words)} stable torch.sort passes of packed keys")
+
+
+def inplace_ms(fn, src, dev, reps: int = 5) -> float:
+    """Mean milliseconds of fn(buf) on a fresh copy `buf` of `src` each
+    time; the copy is not timed."""
+    import torch
+    buf = src.clone()
+    fn(buf)
+    total = 0.0
+    for _ in range(reps):
+        buf.copy_(src)
+        sync(dev)
+        if dev.type == "cuda":
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn(buf)
+            end.record()
+            torch.cuda.synchronize(dev)
+            total += start.elapsed_time(end)
+        else:
+            t0 = time.perf_counter()
+            fn(buf)
+            total += 1e3 * (time.perf_counter() - t0)
+    return total / reps
+
+
+def bitonic_levels(dev, levels, bandwidth: float) -> list[dict]:
+    """The bitonic row sort on every level's window rows: its time, launch
+    count and bound, beside the one-stage-per-launch schedule and a library
+    sort of the level's packed words; each sort's order must equal the
+    library's."""
+    from repro_torch.core import dcv_torch
+    from repro_torch.kernels import bitonic_sort as bsort
     from repro_torch.kernels import ops
-    x = idx.text
-    n, v = len(x), 3
-    n_v = v * -(-dcv_torch.pad_bucket(n) // v)
-    xp = dcv_torch._padded_text(x, n_v, v)
+    out = []
+    for level, (xp, n_v, v, lo, hi) in enumerate(levels):
+        rows = dcv_torch._window_rows(xp, n_v, v)
+        n2, w = rows.shape
+        words = dcv_torch._window_words(xp, n_v, v, lo, hi)
+        zero_launches()
+        srt = ops.bitonic_sort(rows)
+        n_launches = ops.LAUNCHES["bitonic_tile"] + \
+            ops.LAUNCHES["bitonic_cross"]
+        if dev.type == "cuda":
+            assert n_launches == len(bsort.schedule(n2, w)), level
+        err = require_equal(f"bitonic_sort level {level} (torch.sort order)",
+                            srt[:n_v, v].long(),
+                            dcv_torch._order_from_words(words))
+        require_equal(f"bitonic_sort level {level} (one stage a launch)",
+                      srt, stage_sort(rows))
+        lib_fn, lib_note = library_sort(words)
+        entry = {"level": level, "n_v": n_v, "v": v, "rows": [n2, w],
+                 "tile_rows": bsort.tile_rows(n2, w),
+                 "launches": n_launches,
+                 "stages": (n2.bit_length() - 1) * n2.bit_length() // 2,
+                 "ms": time_ms(lambda: ops.bitonic_sort(rows), dev, reps=3),
+                 "stage_per_launch_ms": time_ms(lambda: stage_sort(rows),
+                                                dev),
+                 "bound_ms": 1e3 * 2 * rows.numel() * 4 / bandwidth,
+                 "library_ms": time_ms(lib_fn, dev, reps=3),
+                 "library_call": lib_note, "max_abs_err": err}
+        log(json.dumps({"bitonic_level": entry}))
+        out.append(entry)
+    return out
+
+
+def bitonic_times(dev, level0, launches, bandwidth: float):
+    """Level 0's row sort and each of its kernels, beside bound, plain and
+    library; returns (kernel entries, sorted rows)."""
+    from repro_torch.core import dcv_torch
+    from repro_torch.kernels import bitonic_sort as bsort
+    from repro_torch.kernels import ops
+    xp, n_v, v, lo, hi = level0
     rows = dcv_torch._window_rows(xp, n_v, v)
     n2, w = rows.shape
+    sched = bsort.schedule(n2, w)
     stages = (n2.bit_length() - 1) * n2.bit_length() // 2
-    log(f"level 0: window rows int32[{n2}, {w}] (n_v={n_v}), "
-        f"{stages} bitonic stages")
+    log(f"level 0: window rows int32[{n2}, {w}] (n_v={n_v}), {stages} "
+        f"bitonic stages in {len(sched)} launches")
+    one_pass_ms = 1e3 * 2 * rows.numel() * 4 / bandwidth
+    lib_fn, lib_note = library_sort(
+        dcv_torch._window_words(xp, n_v, v, lo, hi))
+    lib_sort_ms = time_ms(lib_fn, dev, reps=3)
 
     sort_ms = time_ms(lambda: ops.bitonic_sort(rows), dev, reps=3)
     out = ops.bitonic_sort(rows)
-    with mock.patch.object(ops, "bitonic_stage", plain_stage):
-        plain_sort_ms = time_ms(lambda: ops.bitonic_sort(rows), dev)
-        sort_err = require_equal("bitonic_sort level 0", out,
-                                 ops.bitonic_sort(rows))
-    words = dcv_torch._window_words(xp, n_v, v, -(n_v + 2 * v - n),
-                                    int(x.max()))
-    if len(words) == 1:
-        lib_sort_ms = time_ms(lambda: torch.sort(words[0], stable=True), dev,
-                              reps=3)
-        lib_note = "torch.sort(stable=True) of the packed int64 window key"
-    else:
-        lib_sort_ms = time_ms(lambda: dcv_torch._order_from_words(words),
-                              dev, reps=3)
-        lib_note = f"{len(words)} stable torch.sort passes of packed keys"
-    sort_bytes = 2 * rows.numel() * 4
+    with mock.patch.object(ops, "bitonic_launch", plain_launch):
+        plain_sort_ms, plain_out = timed_once(lambda: ops.bitonic_sort(rows),
+                                              dev)
+    sort_err = require_equal("bitonic_sort level 0", out, plain_out)
+    stage_ms = time_ms(lambda: stage_sort(rows), dev, reps=3)
+    stage_err = require_equal("bitonic_stage sort level 0", stage_sort(rows),
+                              plain_out)
+
+    # one launch of each kind, on the rows the sort hands it
+    cross = next(lc for lc in sched
+                 if lc.kind == "cross" and lc.k_first == n2)
+    merge = sched[-1]
+    state, before = rows.clone(), {}
+    for lc in sched:
+        if lc in (sched[0], cross, merge):
+            before[lc] = state.clone()
+        ops.bitonic_launch(state, lc, inplace=True)
+    per_launch = {}
+    for name, lc in (("tile", sched[0]), ("cross", cross),
+                     ("merge", merge)):
+        src = before[lc]
+        ms = inplace_ms(lambda b, lc=lc: ops.bitonic_launch(b, lc,
+                                                            inplace=True),
+                        src, dev)
+        p_ms, want = timed_once(lambda: plain_launch(src, lc), dev)
+        err = require_equal(f"bitonic_{lc.kind} level 0 "
+                            f"k={lc.k_first} j={lc.j_hi}",
+                            ops.bitonic_launch(src, lc), want)
+        per_launch[name] = {"ms": ms, "plain_ms": p_ms, "err": err,
+                            "stages": len(lc.stages())}
+        del src
+
+    # a tile launch with no stages: the HBM round trip alone, beside a clone
+    t = sched[0].rows
+    copy_only = bsort.Launch("tile", 2 * t, t, t // 2, 1, t, t)
+    copy_ms = inplace_ms(lambda b: ops.bitonic_launch(b, copy_only,
+                                                      inplace=True), rows, dev)
+    clone_ms = time_ms(lambda: rows.clone(), dev, reps=5)
+
+    src = "src/repro_torch/kernels/csrc/"
+    tile, cr, mg = per_launch["tile"], per_launch["cross"], \
+        per_launch["merge"]
+    entries = [
+        {"name": "bitonic_stage", "route": "cuda",
+         "source": src + "bitonic_stage.cu",
+         "replaces": "src/repro/kernels/bitonic_stage.py:52",
+         "also_replaces": "src/repro/kernels/bitonic_stage.py:34",
+         "launches": launches["bitonic_stage"], "max_abs_err": stage_err,
+         "function": f"bitonic sort of int32[{n2}, {w}] level-0 window rows "
+                     f"one stage a launch ({stages} launches; off the main "
+                     f"path, which runs bitonic_tile and bitonic_cross)",
+         "ms": stage_ms, "plain_ms": plain_sort_ms,
+         "bound_ms": one_pass_ms, "bound_by": "bytes",
+         "library_ms": lib_sort_ms, "library_call": lib_note,
+         "per_launch_ms": stage_ms / stages},
+        {"name": "bitonic_tile", "route": "cuda",
+         "source": src + "bitonic_sort.cu",
+         "replaces": "src/repro/kernels/bitonic_stage.py:52",
+         "launches": launches["bitonic_tile"], "max_abs_err": tile["err"],
+         "function": f"one launch: every stage k <= {sched[0].rows} "
+                     f"({tile['stages']} stages) on int32[{n2}, {w}] "
+                     f"level-0 window rows, tiles of {sched[0].rows} rows",
+         "ms": tile["ms"], "plain_ms": tile["plain_ms"],
+         "bound_ms": one_pass_ms, "bound_by": "bytes", "library_ms": None,
+         "merge_ms": mg["ms"], "merge_plain_ms": mg["plain_ms"],
+         "merge_function": f"the in-tile merge launch of k = {n2} "
+                           f"({mg['stages']} stages)",
+         "merge_max_abs_err": mg["err"], "copy_only_ms": copy_ms,
+         "clone_ms": clone_ms},
+        {"name": "bitonic_cross", "route": "cuda",
+         "source": src + "bitonic_sort.cu",
+         "replaces": "src/repro/kernels/bitonic_stage.py:34",
+         "launches": launches["bitonic_cross"], "max_abs_err": cr["err"],
+         "function": f"one launch: stages k = {n2}, j = {cross.j_hi} .. "
+                     f"{cross.j_lo} ({cr['stages']} levels) on the level-0 "
+                     f"window rows, runs of {cross.run} rows",
+         "ms": cr["ms"], "plain_ms": cr["plain_ms"],
+         "bound_ms": one_pass_ms, "bound_by": "bytes", "library_ms": None},
+        {"name": "bitonic_sort", "route": "cuda",
+         "source": "src/repro_torch/kernels/ops.py (bitonic_sort) on "
+                   + src + "bitonic_sort.cu",
+         "replaces": "src/repro/kernels/bitonic_stage.py:52",
+         "replaces_note": "the driver of bitonic_tile and bitonic_cross; "
+                          "its launches are theirs",
+         "launches": launches["bitonic_tile"] + launches["bitonic_cross"],
+         "max_abs_err": sort_err,
+         "function": f"bitonic_sort of int32[{n2}, {w}] level-0 window rows "
+                     f"({len(sched)} launches)",
+         "ms": sort_ms, "plain_ms": plain_sort_ms,
+         "bound_ms": one_pass_ms, "bound_by": "bytes",
+         "library_ms": lib_sort_ms, "library_call": lib_note},
+    ]
+    return entries, out
+
+
+def kernel_times(dev, levels, launches, bandwidth: float):
+    import torch
+    from repro_torch.core import dcv_torch
+    from repro_torch.kernels import ops, ref
+    bitonic, out = bitonic_times(dev, levels[0], launches, bandwidth)
+    lib_sort_ms = bitonic[-1]["library_ms"]
+    lib_note = bitonic[-1]["library_call"]
+    xp, n_v, v, lo, hi = levels[0]
+    words = dcv_torch._window_words(xp, n_v, v, lo, hi)
+    block = ref.SORT_BLOCK
 
     # Step-1 sample rows of level 0, in window-sorted order
     order = out[:n_v, v].long()
@@ -510,38 +776,43 @@ def kernel_times(dev, idx, launches, bandwidth: float):
         + padded.shape[0] // 512 * 4
 
     # radix: one pass of the level-0 window word, then the whole argsort
-    from repro_torch.kernels import ref
-    bits = dcv_torch._word_bits(v, -(n_v + 2 * v - n), int(x.max()))
+    bits = dcv_torch._word_bits(v, lo, hi)
     keys = words[0]
-    digits = pass_digits(keys, 0, 1024)
-    nb = digits.shape[0] // 1024
-    hist_ms = time_ms(lambda: ops.radix_histogram_blocks(digits, 257), dev,
-                      reps=10)
-    hist = ops.radix_histogram_blocks(digits, 257)
+    digits = pass_digits(keys, 0, block)
+    nb = digits.shape[0] // block
+    hist_ms = time_ms(lambda: ops.radix_histogram_blocks(digits, 257, block),
+                      dev, reps=10)
+    hist = ops.radix_histogram_blocks(digits, 257, block)
     plain_hist_ms = time_ms(lambda: ref.radix_histogram_ref(digits, 257,
-                                                            1024), dev)
+                                                            block), dev)
     hist_err = require_equal("radix_hist level 0", hist,
-                             ref.radix_histogram_ref(digits, 257, 1024))
-    flat_ids = (torch.arange(len(digits), device=dev) // 1024) * 257 + digits
+                             ref.radix_histogram_ref(digits, 257, block))
+    flat_ids = (torch.arange(len(digits), device=dev) // block) * 257 + digits
     lib_hist_ms = time_ms(lambda: torch.bincount(flat_ids,
                                                  minlength=nb * 257), dev,
                           reps=10)
     const = torch.full_like(digits, 7)
-    const_hist_ms = time_ms(lambda: ops.radix_histogram_blocks(const, 257),
+    const_hist_ms = time_ms(lambda: ops.radix_histogram_blocks(const, 257,
+                                                               block),
                             dev, reps=10)
     hist_bytes = digits.numel() * 4 + hist.numel() * 4
 
-    offsets = scan_offsets(digits, n_v, 1024)
+    offsets = scan_offsets(digits, n_v, block)
     payload = torch.arange(n_v, dtype=torch.int32, device=dev)
-    scat_ms = time_ms(lambda: ops.radix_scatter(keys, payload, 0, offsets),
-                      dev, reps=10)
-    got = ops.radix_scatter(keys, payload, 0, offsets)
+    scat_ms = time_ms(lambda: ops.radix_scatter(keys, payload, 0, offsets,
+                                                block), dev, reps=10)
+    got = ops.radix_scatter(keys, payload, 0, offsets, block)
     plain_scat_ms = time_ms(lambda: ref.radix_scatter_ref(
-        keys, payload, 0, offsets, 1024), dev)
-    want = ref.radix_scatter_ref(keys, payload, 0, offsets, 1024)
+        keys, payload, 0, offsets, block), dev)
+    want = ref.radix_scatter_ref(keys, payload, 0, offsets, block)
     scat_err = max(require_equal("radix_scatter level 0", g, w)
                    for g, w in zip(got, want))
     scat_bytes = 2 * n_v * (8 + 4) + offsets.numel() * 4
+    # the same kernel at the previous block of 1,024 elements
+    off_1024 = scan_offsets(pass_digits(keys, 0, 1024), n_v, 1024)
+    scat_1024_ms = time_ms(lambda: ops.radix_scatter(keys, payload, 0,
+                                                     off_1024, 1024),
+                           dev, reps=10)
 
     argsort_ms = time_ms(lambda: ops.radix_argsort(words, bits), dev, reps=5)
     order0 = ops.radix_argsort(words, bits)
@@ -554,22 +825,11 @@ def kernel_times(dev, idx, launches, bandwidth: float):
     passes = sum(-(-b // 8) for b in bits)
     argsort_bytes = n_v * 8 * (len(words) + 1)
     log(f"level 0 radix: word bits {bits}, {passes} passes, "
-        f"{nb} blocks of 1024")
+        f"{nb} blocks of {block}")
 
     src = "src/repro_torch/kernels/csrc/"
     no_tpu = "src/repro/core/dcv_jax.py:170"
-    return [
-        {"name": "bitonic_stage", "route": "cuda",
-         "source": src + "bitonic_stage.cu",
-         "replaces": "src/repro/kernels/bitonic_stage.py:52",
-         "also_replaces": "src/repro/kernels/bitonic_stage.py:34",
-         "launches": launches["bitonic_stage"], "max_abs_err": sort_err,
-         "function": f"bitonic_sort of int32[{n2}, {w}] level-0 window rows "
-                     f"({stages} launches)",
-         "ms": sort_ms, "plain_ms": plain_sort_ms,
-         "bound_ms": 1e3 * sort_bytes / bandwidth, "bound_by": "bytes",
-         "library_ms": lib_sort_ms, "library_call": lib_note,
-         "per_launch_ms": sort_ms / stages},
+    return bitonic + [
         {"name": "seg_boundary", "route": "cuda",
          "source": src + "seg_boundary.cu",
          "replaces": "src/repro/kernels/seg_boundary.py:18",
@@ -588,7 +848,7 @@ def kernel_times(dev, idx, launches, bandwidth: float):
          "replaces": "src/repro/kernels/radix_hist.py:20",
          "launches": launches["radix_hist"], "max_abs_err": hist_err,
          "function": f"per-block histograms of int32[{digits.numel()}] "
-                     f"level-0 digits, 257 bins (256 + pad), block 1024",
+                     f"level-0 digits, 257 bins (256 + pad), block {block}",
          "ms": hist_ms, "plain_ms": plain_hist_ms,
          "bound_ms": 1e3 * hist_bytes / bandwidth, "bound_by": "bytes",
          "library_ms": lib_hist_ms,
@@ -601,10 +861,10 @@ def kernel_times(dev, idx, launches, bandwidth: float):
                           "host in numpy (_order_from_words)",
          "launches": launches["radix_scatter"], "max_abs_err": scat_err,
          "function": f"one stable 8-bit pass of int64[{n_v}] level-0 keys "
-                     f"with an int32 payload",
+                     f"with an int32 payload, blocks of {block}",
          "ms": scat_ms, "plain_ms": plain_scat_ms,
          "bound_ms": 1e3 * scat_bytes / bandwidth, "bound_by": "bytes",
-         "library_ms": None},
+         "library_ms": None, "block_1024_ms": scat_1024_ms},
         {"name": "radix_argsort", "route": "cuda",
          "source": "src/repro_torch/kernels/ref.py (lsd_argsort) on "
                    + src + "radix_hist.cu + radix_scatter.cu",
@@ -677,9 +937,13 @@ def main() -> int:
     idx, launches, builds = main_path(dev, docs)
     rates, pats, counts, located = queries(dev, idx, docs, N_PATTERNS)
     sparse = sparse_path(dev, idx, docs, pats, counts, located)
-    table = kernel_times(dev, idx, launches,
-                         dram_bytes_per_s(torch.cuda.get_device_name(0)))
-    log(json.dumps({"builds_s": builds, "queries": rates, "sparse": sparse}))
+    bandwidth = dram_bytes_per_s(torch.cuda.get_device_name(0))
+    levels = window_levels(dev, idx.text)
+    table = kernel_times(dev, levels, launches, bandwidth)
+    per_level = bitonic_levels(dev, levels, bandwidth)
+    del levels
+    log(json.dumps({"builds_s": builds, "queries": rates, "sparse": sparse,
+                    "bitonic_levels": per_level}))
     for impl in ("auto", "radix"):
         log(json.dumps({"trace": trace_build(dev, idx, impl)}))
     print(json.dumps({"kernels": table}))

@@ -26,20 +26,24 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-SOURCES = ("bitonic_stage.cu", "seg_boundary.cu", "radix_hist.cu",
-           "radix_scatter.cu")
+SOURCES = ("bitonic_stage.cu", "bitonic_sort.cu", "seg_boundary.cu",
+           "radix_hist.cu", "radix_scatter.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
 
 #: kernel name -> launches so far (plain ints; zero them to start a count).
-LAUNCHES = {"bitonic_stage": 0, "seg_boundary": 0, "radix_hist": 0,
-            "radix_scatter": 0}
+LAUNCHES = {"bitonic_stage": 0, "bitonic_tile": 0, "bitonic_cross": 0,
+            "seg_boundary": 0, "radix_hist": 0, "radix_scatter": 0}
 
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 #: C entry point -> argument types (every entry point returns an int status).
 _SIGNATURES = {
     # rows, n, w, num_keys, k, j, device, stream
     "repro_bitonic_stage": (_P, _LL, _I, _I, _LL, _LL, _I, _P),
+    # rows, n, w, num_keys, log_s, k_first, k_last, device, stream
+    "repro_bitonic_tile": (_P, _LL, _I, _I, _I, _LL, _LL, _I, _P),
+    # rows, n, w, num_keys, k, j_hi, r, cb, device, stream
+    "repro_bitonic_cross": (_P, _LL, _I, _I, _LL, _LL, _I, _I, _I, _P),
     # rows, flags, csum, totals, n, w, num_keys, block, device, stream
     "repro_seg_boundary": (_P, _P, _P, _P, _LL, _I, _I, _I, _I, _P),
     # digits, out, n, block, n_bins, device, stream

@@ -13,15 +13,15 @@
 // What bounds it on the card: bytes. A stage reads every row once and writes
 // back the rows that move, 2*N*W*4 bytes at most, against a few integer
 // compares per row, so HBM bandwidth (3.35 TB/s on an H100 SXM) is the limit.
-// A full sort is log2(N)*(log2(N)+1)/2 such stages, each one launch.
+// It serves one-stage calls (`ops.bitonic_stage`); a full sort runs its
+// stages in fused launches instead (`bitonic_sort.cu`).
 //
 // What the design does about it: one thread owns one pair, so a stage needs
 // no synchronisation and runs in place. Consecutive threads own consecutive
 // lower rows whenever j >= 32, so a warp's loads cover contiguous rows.
 // A pair whose order is already right is not written back. W and num_keys
 // are runtime arguments (the window width reaches v + 1 = 186 on repetitive
-// texts), so the column loops are not unrolled at compile time. Fusing the
-// j < tile stages of one k into a shared-memory pass is left for later work.
+// texts), so the column loops are not unrolled at compile time.
 #include <cstdint>
 
 #include <cuda_runtime.h>

@@ -1,8 +1,12 @@
 """Public wrappers of the kernels: sort and rank primitives of the build.
 
-* `bitonic_stage` / `bitonic_sort` — one compare-exchange stage / a full
-  row sort of int32[N, W] rows (`repro_torch.core.dcv_torch` sorts its
-  window rows with `bitonic_sort` when ``sort_impl="kernel"``);
+* `bitonic_stage` — one compare-exchange stage of int32[N, W] rows
+  (`bitonic_stage.cu`);
+* `bitonic_launch` / `bitonic_sort` — one launch of
+  `bitonic_sort.schedule` (a run of stages in shared memory,
+  `bitonic_sort.cu`) / a full row sort in those launches
+  (`repro_torch.core.dcv_torch` sorts its window rows with it when
+  ``sort_impl="kernel"``);
 * `seg_boundary` — block-local boundaries and prefix sums of sorted rows;
 * `dense_rank_sorted` — dense ranks of sorted rows: `seg_boundary` plus
   a block stitch in PyTorch ops (the Step-1 sample ranking);
@@ -13,8 +17,9 @@
   those two (``sort_impl="radix"`` window sorts, the sparse build).
 
 Each wrapper picks its path from the tensor it is given: a CUDA tensor
-runs the hand-written kernel (`bitonic_stage.cu`, `seg_boundary.cu`,
-`radix_hist.cu`, `radix_scatter.cu`), a CPU tensor runs the plain version
+runs the hand-written kernel (`bitonic_stage.cu`, `bitonic_sort.cu`,
+`seg_boundary.cu`, `radix_hist.cu`, `radix_scatter.cu`), a CPU tensor runs
+the plain version
 in `ref`. Any other device raises. `LAUNCHES` counts kernel launches by
 kernel name.
 """
@@ -24,14 +29,15 @@ import torch
 
 from . import ref
 from ._build import LAUNCHES
+from .bitonic_sort import bitonic_launch_cuda, schedule
 from .bitonic_stage import bitonic_stage_cuda
 from .radix_hist import radix_histogram_cuda
 from .radix_scatter import radix_scatter_cuda
 from .seg_boundary import seg_boundary_cuda
 
-__all__ = ["LAUNCHES", "bitonic_sort", "bitonic_stage", "dense_rank_sorted",
-           "radix_argsort", "radix_histogram", "radix_histogram_blocks",
-           "radix_scatter", "seg_boundary"]
+__all__ = ["LAUNCHES", "bitonic_launch", "bitonic_sort", "bitonic_stage",
+           "dense_rank_sorted", "radix_argsort", "radix_histogram",
+           "radix_histogram_blocks", "radix_scatter", "seg_boundary"]
 
 
 def _on_cuda(t: torch.Tensor, op: str) -> bool:
@@ -57,24 +63,35 @@ def bitonic_stage(rows: torch.Tensor, k: int, j: int,
     return rows.copy_(out) if inplace else out
 
 
+def bitonic_launch(rows: torch.Tensor, launch, num_keys: int | None = None,
+                   *, inplace: bool = False) -> torch.Tensor:
+    """One launch of `bitonic_sort.schedule` over rows int32[N, W]: its run
+    of stages (k, j), each exactly `bitonic_stage`. With ``inplace=True``
+    the result is written into `rows`, which is returned."""
+    num_keys = num_keys or rows.shape[1]
+    if _on_cuda(rows, "bitonic_launch"):
+        return bitonic_launch_cuda(rows if inplace else rows.clone(), launch,
+                                   num_keys)
+    out = ref.bitonic_stages_ref(rows, launch.stages(), num_keys)
+    return rows.copy_(out) if inplace else out
+
+
 def bitonic_sort(rows: torch.Tensor,
                  num_keys: int | None = None) -> torch.Tensor:
-    """Full bitonic row sort: every (k, j) stage of `bitonic_stage` in
-    turn, log2(N)·(log2(N)+1)/2 of them, on a copy of `rows` (int32[N, W],
-    N a power of two). Sorts ascending by the first `num_keys` columns;
-    append a unique index column to make the order total."""
-    n = rows.shape[0]
+    """Full bitonic row sort of a copy of `rows` (int32[N, W], N a power of
+    two): every (k, j) stage in turn, log2(N)·(log2(N)+1)/2 of them, grouped
+    into the launches of `bitonic_sort.schedule` (30 at N = 2^24, W = 4).
+    Sorts ascending by the first `num_keys` columns; append a unique index
+    column to make the order total. The result equals `bitonic_stage`
+    applied stage by stage, bit for bit."""
+    n, w = rows.shape
     if n & (n - 1):
         raise ValueError(f"bitonic_sort needs a power-of-two row count, "
                          f"got {n}")
+    _on_cuda(rows, "bitonic_sort")
     out = rows.clone()
-    k = 2
-    while k <= n:
-        j = k // 2
-        while j >= 1:
-            out = bitonic_stage(out, k, j, num_keys, inplace=True)
-            j //= 2
-        k *= 2
+    for launch in schedule(n, w):
+        out = bitonic_launch(out, launch, num_keys, inplace=True)
     return out
 
 
@@ -148,7 +165,7 @@ def radix_histogram(digits: torch.Tensor, n_bins: int,
 
 
 def radix_scatter(keys: torch.Tensor, payload: torch.Tensor, shift: int,
-                  offsets: torch.Tensor, block: int = 1024, *,
+                  offsets: torch.Tensor, block: int = ref.SORT_BLOCK, *,
                   write_keys: bool = True):
     """One stable 8-bit scatter pass; see `ref.radix_scatter_ref`.
     Returns (keys_out or None, payload_out)."""
@@ -159,7 +176,8 @@ def radix_scatter(keys: torch.Tensor, payload: torch.Tensor, shift: int,
                                  write_keys=write_keys)
 
 
-def radix_argsort(words, key_bits, block: int = 1024) -> torch.Tensor:
+def radix_argsort(words, key_bits,
+                  block: int = ref.SORT_BLOCK) -> torch.Tensor:
     """Stable LSD radix argsort of a list of int64 words, most significant
     first (each non-negative and below 2**key_bits; `key_bits` one int or
     one per word): int64[N] positions sorted by (words..., position).

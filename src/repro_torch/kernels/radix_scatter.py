@@ -14,6 +14,8 @@ from .radix_hist import check_vector
 
 #: digits of one pass: 8 bits.
 RADIX_BINS = 256
+#: most elements a CUDA block takes: 256 threads of at most 16 elements.
+MAX_BLOCK = 4096
 
 
 def radix_scatter_cuda(keys: torch.Tensor, payload: torch.Tensor, shift: int,
@@ -22,7 +24,7 @@ def radix_scatter_cuda(keys: torch.Tensor, payload: torch.Tensor, shift: int,
     """One stable scatter pass on the current stream.
 
     keys int64[N] (non-negative), payload int32[N] or int64[N], offsets
-    int32[256, ceil(N / block)], `block` a multiple of 256 in [256, 2048],
+    int32[256, ceil(N / block)], `block` a multiple of 256 in [256, 4096],
     `shift` in [0, 56]. Returns (keys_out or None, payload_out): element i
     lands at ``offsets[d, i // block]`` plus its rank among the elements
     before it in its block with the same digit d = (key >> shift) & 255."""
@@ -35,9 +37,9 @@ def radix_scatter_cuda(keys: torch.Tensor, payload: torch.Tensor, shift: int,
         raise ValueError(f"radix_scatter: payload {list(payload.shape)} on "
                          f"{payload.device} does not match keys [{n}] on "
                          f"{keys.device}")
-    if block % 256 or not 256 <= block <= 2048:
+    if block % 256 or not 256 <= block <= MAX_BLOCK:
         raise ValueError(f"radix_scatter: block={block} must be a multiple "
-                         f"of 256 in [256, 2048]")
+                         f"of 256 in [256, {MAX_BLOCK}]")
     if not 0 <= shift <= 56:
         raise ValueError(f"radix_scatter: shift={shift} outside [0, 56]")
     n_blocks = -(-n // block)

@@ -17,7 +17,7 @@ import torch
 RADIX_BITS = 8
 RADIX_BINS = 1 << RADIX_BITS
 #: elements per block of the radix sort's histogram and scatter passes.
-SORT_BLOCK = 1024
+SORT_BLOCK = 4096
 
 
 def _lex_lt(a: torch.Tensor, b: torch.Tensor, num_keys: int) -> torch.Tensor:
@@ -44,6 +44,16 @@ def bitonic_stage_ref(rows: torch.Tensor, k: int, j: int,
     lower = idx < partner
     keep = (_lex_lt(rows, other, num_keys) == lower) == up
     return torch.where(keep[:, None], rows, other)
+
+
+def bitonic_stages_ref(rows: torch.Tensor, stages,
+                       num_keys: int | None = None) -> torch.Tensor:
+    """The stages (k, j) of `stages`, in order, each one
+    `bitonic_stage_ref`: what one launch of the shared-memory sort
+    (`csrc/bitonic_sort.cu`) computes."""
+    for k, j in stages:
+        rows = bitonic_stage_ref(rows, k, j, num_keys)
+    return rows
 
 
 def bitonic_sort_ref(rows: torch.Tensor,

@@ -12,6 +12,7 @@ import torch
 
 from repro_torch.api import SAOptions, SuffixArrayIndex
 from repro_torch.core.dcv_torch import _order_from_words, suffix_array_torch
+from repro_torch.kernels import bitonic_sort as bsort
 from repro_torch.kernels import ops, ref
 from repro_torch.sparse import build_sparse_suffix_array
 
@@ -42,17 +43,53 @@ def test_bitonic_stage_kernel_matches_plain(cuda, w, kj):
                                    rtol=0, atol=0)
 
 
-@pytest.mark.parametrize("n", [2 ** 10, 2 ** 16])
+@pytest.mark.parametrize("n", [2 ** 10, 2 ** 16, 2 ** 20])
 def test_bitonic_sort_kernel_matches_plain(cuda, n):
     rows = _rows(np.random.default_rng(n), n, 4, hi=50).to(cuda)
     rows[:, 3] = torch.randperm(n, generator=torch.Generator().manual_seed(n)
                                 ).to(cuda, torch.int32)
-    before = ops.LAUNCHES["bitonic_stage"]
+    before = dict(ops.LAUNCHES)
     got = ops.bitonic_sort(rows)
-    stages = (n.bit_length() - 1) * n.bit_length() // 2
-    assert ops.LAUNCHES["bitonic_stage"] - before == stages
+    launches = bsort.schedule(n, 4)
+    for kind in ("tile", "cross"):
+        name = f"bitonic_{kind}"
+        assert ops.LAUNCHES[name] - before[name] == sum(
+            launch.kind == kind for launch in launches)
+    assert ops.LAUNCHES["bitonic_stage"] == before["bitonic_stage"]
     torch.testing.assert_close(got, ref.bitonic_sort_ref(rows), rtol=0,
                                atol=0)
+
+
+def _launch_cases():
+    # N below, at and above the tile T, then 2^20 rows
+    for w in (3, 9, 66, 187):
+        t = bsort.tile_rows(2 ** 30, w)
+        for n in (t // 2, t, 4 * t):
+            yield n, w
+    yield 2 ** 20, 4
+
+
+@pytest.mark.parametrize("n,w", list(_launch_cases()))
+@pytest.mark.parametrize("keys", ["all", "prefix"])
+def test_bitonic_launches_match_plain(cuda, n, w, keys):
+    # every launch of the schedule (tile sort, cross-tile runs, in-tile
+    # merges) against its stages applied one by one on the plain version;
+    # "prefix" ties keys with differing trailing columns (the copy rule)
+    rng = np.random.default_rng(n + w)
+    rows = _rows(rng, n, w, hi=2 if keys == "prefix" else 50).to(cuda)
+    num_keys = w if keys == "all" else max(1, w // 3)
+    launches = bsort.schedule(n, w)
+    kinds = {launch.kind for launch in launches}
+    assert kinds == ({"tile", "cross"} if n > bsort.tile_rows(n, w)
+                     else {"tile"})
+    cur = rows
+    for launch in launches:
+        want = ref.bitonic_stages_ref(cur, launch.stages(), num_keys)
+        got = bsort.bitonic_launch_cuda(cur.clone(), launch, num_keys)
+        torch.testing.assert_close(got, want, rtol=0, atol=0)
+        cur = want
+    whole = ops.bitonic_sort(rows, num_keys)
+    torch.testing.assert_close(whole, cur, rtol=0, atol=0)
 
 
 @pytest.mark.parametrize("kind", ["random", "all_equal", "all_distinct"])
@@ -89,9 +126,10 @@ def test_small_build_goes_through_the_kernels(cuda):
     for key in ops.LAUNCHES:
         ops.LAUNCHES[key] = 0
     idx = SuffixArrayIndex.from_docs(docs, device=cuda)
-    # the "kernel" path's two kernels launched, the radix ones did not
-    assert {k for k, v in ops.LAUNCHES.items() if v} == {"bitonic_stage",
-                                                          "seg_boundary"}
+    # the "kernel" path's kernels launched (the shared-memory sort's two and
+    # seg_boundary), the one-stage kernel and the radix ones did not
+    assert {k for k, v in ops.LAUNCHES.items() if v} == {
+        "bitonic_tile", "bitonic_cross", "seg_boundary"}
     cpu = SuffixArrayIndex.from_docs(docs, device="cpu")
     torch.testing.assert_close(idx.sa.cpu(), cpu.sa, rtol=0, atol=0)
     x = np.asarray(idx.text.cpu())
@@ -108,7 +146,8 @@ def test_small_build_goes_through_the_kernels(cuda):
 # ------------------------------------------------------------- radix sort
 @pytest.mark.parametrize("n,bins,block", [
     (1024, 256, 256), (2048, 8, 1024), (512, 2, 128), (4096, 128, 512),
-    (256, 16, 256), (128, 1, 64), (2 ** 20, 257, 1024), (999, 8, 128)])
+    (256, 16, 256), (128, 1, 64), (2 ** 20, 257, 1024), (999, 8, 128),
+    (2 ** 20 + 5, 257, 4096)])
 def test_radix_hist_kernel_matches_plain(cuda, n, bins, block):
     rng = np.random.default_rng(n + bins)
     d = torch.from_numpy(rng.integers(0, bins, n).astype(np.int32))
@@ -123,9 +162,11 @@ def test_radix_hist_kernel_matches_plain(cuda, n, bins, block):
             atol=0)
 
 
-@pytest.mark.parametrize("kind", ["random", "constant", "distinct"])
+@pytest.mark.parametrize("kind", ["random", "constant", "distinct",
+                                  "skewed"])
 @pytest.mark.parametrize("n,block", [(1000, 256), (70_001, 1024),
-                                     (4096, 2048)])
+                                     (4096, 2048), (3 * 4096, 4096),
+                                     (70_001, 4096), (2 ** 20, 4096)])
 @pytest.mark.parametrize("payload_dtype", [torch.int32, torch.int64])
 def test_radix_scatter_kernel_matches_plain(cuda, kind, n, block,
                                             payload_dtype):
@@ -133,7 +174,11 @@ def test_radix_scatter_kernel_matches_plain(cuda, kind, n, block,
     keys = torch.from_numpy({
         "random": rng.integers(0, 2 ** 40, n),
         "constant": np.full(n, 3 << 24),
-        "distinct": rng.permutation(n) << 24}[kind].astype(np.int64))
+        "distinct": rng.permutation(n) << 24,
+        # nine digits in ten are 0, the rest spread over all 256
+        "skewed": np.where(rng.random(n) < 0.9, 0,
+                           rng.integers(0, 256, n)) << 24}[kind]
+        .astype(np.int64))
     shift = 24
     nb = -(-n // block)
     digits = torch.full((nb * block,), 256, dtype=torch.int32)
@@ -147,6 +192,11 @@ def test_radix_scatter_kernel_matches_plain(cuda, kind, n, block,
                             offsets.to(cuda), block)
     for g, w in zip(got, want):
         torch.testing.assert_close(g.cpu(), w, rtol=0, atol=0)
+    none, p_only = ops.radix_scatter(keys.to(cuda), payload.to(cuda), shift,
+                                     offsets.to(cuda), block,
+                                     write_keys=False)
+    assert none is None
+    torch.testing.assert_close(p_only.cpu(), want[1], rtol=0, atol=0)
 
 
 @pytest.mark.parametrize("n", [1, 1024, 1025, 300_000])

@@ -16,7 +16,9 @@ import torch
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro.kernels.seg_boundary import seg_boundary_pallas
+from repro_torch.kernels import bitonic_sort as bsort
 from repro_torch.kernels import ops, ref
+from repro_torch.kernels.bitonic_sort import bitonic_launch_cuda, schedule
 from repro_torch.kernels.bitonic_stage import bitonic_stage_cuda
 from repro_torch.kernels.seg_boundary import seg_boundary_cuda
 
@@ -89,6 +91,105 @@ def test_bitonic_stage_inplace_and_copy():
     assert torch.equal(rows, before) and out is not rows
     same = ops.bitonic_stage(rows, 2, 1, inplace=True)
     assert same is rows and torch.equal(rows, out)
+
+
+# ---------------------------------------- bitonic sort in shared-memory runs
+def _all_stages(n):
+    k, out = 2, []
+    while k <= n:
+        j = k // 2
+        while j >= 1:
+            out.append((k, j))
+            j //= 2
+        k *= 2
+    return out
+
+
+@pytest.mark.parametrize("n,w", [(2 ** 24, 4), (2 ** 24, 5), (2 ** 24, 6),
+                                 (2 ** 23, 9), (2 ** 22, 15), (2 ** 20, 187),
+                                 (4096, 66), (2, 3), (1, 4)])
+def test_bitonic_schedule_covers_every_stage_in_order(n, w):
+    launches = schedule(n, w)
+    assert [st for launch in launches for st in launch.stages()] == \
+        _all_stages(n)
+    t = bsort.tile_rows(n, w)
+    assert t * (w | 1) * 4 <= bsort.SMEM_BUDGET
+    for launch in launches:
+        assert launch.rows == t and n % launch.rows == 0
+        if launch.kind == "cross":      # every partner inside the block
+            assert launch.j_lo >= t and launch.k_first == launch.k_last
+            assert launch.run * (launch.j_hi // launch.j_lo) * 2 == t
+        else:
+            assert launch.j_hi == t // 2 and launch.j_lo == 1
+    # the level shapes of chip_smoke.py's corpus: 30 launches in place of
+    # 300 stages at 2^24 rows of W = 4
+    if (n, w) == (2 ** 24, 4):
+        assert len(launches) == 30 and len(_all_stages(n)) == 300
+
+
+@pytest.mark.parametrize("w", [3, 9, 66, 187])
+@pytest.mark.parametrize("num_keys", ["all", "prefix"])
+def test_bitonic_stages_ref_equals_jax_stage_by_stage(w, num_keys):
+    rng = np.random.default_rng(w)
+    n = 64
+    rows = rng.integers(0, 3, (n, w)).astype(np.int32)   # many equal keys
+    nk = w if num_keys == "all" else max(1, w // 3)
+    stages = [(2, 1), (8, 4), (8, 2), (64, 32), (64, 8), (64, 1)]
+    got = ref.bitonic_stages_ref(torch.from_numpy(rows), stages, nk)
+    want = jnp.asarray(rows)
+    for k, j in stages:
+        want = jref.bitonic_stage_ref(want, k, j, nk)
+    _eq(got, want)
+
+
+def _tile_cases():
+    # N below, at and above the tile T at the real shared-memory budget
+    for w in (3, 9, 66, 187):
+        t = bsort.tile_rows(2 ** 30, w)
+        for n in (t // 2, t, 4 * t):
+            yield n, w
+
+
+@pytest.mark.parametrize("n,w", list(_tile_cases()))
+def test_bitonic_sort_schedule_matches_jax_oracle(n, w):
+    rng = np.random.default_rng(n + w)
+    rows = rng.integers(-4, 9, (n, w)).astype(np.int32)
+    rows[:, -1] = rng.permutation(n)
+    got = ops.bitonic_sort(torch.from_numpy(rows))
+    _eq(got, jref.bitonic_sort_ref(jnp.asarray(rows)))
+
+
+@pytest.mark.parametrize("n,w", [(8, 3), (16, 3), (64, 3), (64, 9)])
+def test_bitonic_sort_small_tile_matches_pallas(monkeypatch, n, w):
+    # a 16-row tile: N below, at and above it with cross-tile launches,
+    # held against the Pallas kernels in interpret mode
+    monkeypatch.setattr(bsort, "SMEM_BUDGET", 16 * (w | 1) * 4)
+    assert bsort.tile_rows(n, w) == min(16, n)
+    rng = np.random.default_rng(n * w)
+    rows = rng.integers(-4, 9, (n, w)).astype(np.int32)
+    rows[:, -1] = rng.permutation(n)
+    got = ops.bitonic_sort(torch.from_numpy(rows))
+    _eq(got, jops.bitonic_sort(jnp.asarray(rows), tile=min(16, n // 2)))
+    _eq(got, jref.bitonic_sort_ref(jnp.asarray(rows)))
+
+
+@pytest.mark.parametrize("n,w,budget_rows", [(256, 4, 16), (512, 9, 64),
+                                             (128, 66, 8), (64, 187, 4)])
+def test_bitonic_sort_prefix_keys_equals_stage_by_stage(monkeypatch, n, w,
+                                                        budget_rows):
+    # num_keys < W with duplicate keys: where keys tie but trailing columns
+    # differ, the element-wise rule copies one row over the other, so the
+    # launches must equal the reference's stages applied one by one
+    monkeypatch.setattr(bsort, "SMEM_BUDGET", budget_rows * (w | 1) * 4)
+    rng = np.random.default_rng(n + w)
+    rows = rng.integers(0, 2, (n, w)).astype(np.int32)
+    num_keys = max(1, w // 4)
+    got = ops.bitonic_sort(torch.from_numpy(rows), num_keys)
+    assert any(launch.kind == "cross" for launch in schedule(n, w))
+    want = jnp.asarray(rows)
+    for k, j in _all_stages(n):
+        want = jref.bitonic_stage_ref(want, k, j, num_keys)
+    _eq(got, want)
 
 
 # ------------------------------------------------------------- seg boundary
@@ -171,10 +272,15 @@ def test_kernel_launchers_refuse_non_cuda_tensors():
     rows = torch.zeros((512, 2), dtype=torch.int32)
     with pytest.raises(ValueError, match="CUDA"):
         bitonic_stage_cuda(rows, 2, 1, 2)
+    for launch in schedule(512, 2)[:2]:
+        with pytest.raises(ValueError, match="CUDA"):
+            bitonic_launch_cuda(rows, launch, 2)
     with pytest.raises(ValueError, match="CUDA"):
         seg_boundary_cuda(rows, 2, 512)
     meta = torch.empty((4, 2), dtype=torch.int32, device="meta")
     with pytest.raises(ValueError, match="device"):
         ops.bitonic_stage(meta, 2, 1)
+    with pytest.raises(ValueError, match="device"):
+        ops.bitonic_sort(meta)
     with pytest.raises(ValueError, match="device"):
         ops.seg_boundary(meta, block=4)

@@ -15,6 +15,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro.core import dcv_jax
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro.kernels.radix_hist import radix_histogram_pallas
@@ -174,6 +175,32 @@ def test_radix_argsort_block_sizes_agree():
     for block in (256, 512, 2048):
         np.testing.assert_array_equal(
             ops.radix_argsort(words, 6, block=block).numpy(), want)
+
+
+@pytest.mark.parametrize("n", [ref.SORT_BLOCK - 1, ref.SORT_BLOCK,
+                               3 * ref.SORT_BLOCK + 77])
+@pytest.mark.parametrize("kind", ["distinct", "ties"])
+def test_radix_argsort_ref_at_sort_block_matches_jax_order(n, kind):
+    # the JAX radix impl's host sort (`dcv_jax._order_from_words`) leaves
+    # ties in any order inside a run; the LSD sort keeps them in position
+    # order, so runs must hold the same positions, ascending here
+    rng = np.random.default_rng([SEED, n, len(kind)])
+    if kind == "distinct":
+        bits, words = 40, [rng.permutation(n) * 977 + 5]
+    else:
+        bits, words = 10, [rng.integers(0, 6, n), rng.integers(0, 1024, n)]
+    words = [np.asarray(w, np.int64) for w in words]
+    got = ref.radix_argsort_ref([torch.from_numpy(w) for w in words], bits,
+                                ref.SORT_BLOCK).numpy()
+    want, is_start = dcv_jax._order_from_words(words)
+    for w in words:
+        np.testing.assert_array_equal(w[got], w[want])
+    run_id = np.cumsum(is_start) - 1
+    for r in np.unique(run_id):
+        in_run = run_id == r
+        np.testing.assert_array_equal(got[in_run], np.sort(want[in_run]))
+    if kind == "distinct":
+        np.testing.assert_array_equal(got, want)
 
 
 # -------------------------------------------------------- device dispatch
