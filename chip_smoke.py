@@ -13,10 +13,14 @@ Phases (any failure exits non-zero; no phase's exception is caught):
    version on the same inputs, integer outputs equal element for element
    (the one-stage bitonic kernel; every launch of the shared-memory sort's
    schedule, tile and cross-tile, at W = 3 .. 187 and N below, at and above
-   the tile, keys total or a tied prefix; the radix histogram at the TPU
-   kernel's test sweeps and at N = 2^24; the scatter pass at blocks of
-   1,024 and 4,096 and the LSD argsort, also against stable `torch.sort`
-   passes).
+   the tile, keys total or a tied prefix; the radix histogram's digit
+   loader at the TPU kernel's test sweeps and at N = 2^24; its key loader
+   at shifts 0 .. 56, ragged and whole blocks of 1,024 and 4,096, the key
+   families of `tests/torch_pass_keys.py` (random, constant, skewed and
+   top-pass keys), N up to 2^24, and the offsets scanned from it against
+   the staged route's;
+   the scatter pass at blocks of 1,024 and 4,096 and the LSD argsort, also
+   against stable `torch.sort` passes).
 3. Main path at real size: a seeded corpus of 4,096 byte documents
    (sigma = 256, 14,667,776 encoded tokens; about 10% of the documents copy
    a 512-byte passage of another one) goes through
@@ -33,13 +37,17 @@ Phases (any failure exits non-zero; no phase's exception is caught):
    index's; a 15-token pattern must raise `PatternTooShortError`;
    `longest_match` of 4 planted sequences must equal the dense answer.
 6. Kernel times at the main path's level-0 shapes, beside their bounds,
-   the plain versions and one PyTorch library call; the bitonic row sort at
-   every level of one "kernel" build (the real window rows of each level),
-   beside its bound, its launch count, the one-stage-per-launch schedule
-   and `torch.sort` of the level's packed words.
-7. Trace: one more kernel-path build and one radix build under
-   `torch.profiler`: device time by kernel and the device's idle share of
-   each build's wall time.
+   the plain versions and one PyTorch library call; the radix histogram's
+   key loader on random, constant and top-pass keys, its digit loader,
+   and a level-0 pass's digit work the old way (digits staged in PyTorch,
+   counted, transposed and scanned) beside the new (the key loader and
+   one cumsum); the bitonic row sort at every level of one
+   "kernel" build (the real window rows of each level), beside its bound,
+   its launch count, the one-stage-per-launch schedule and `torch.sort` of
+   the level's packed words.
+7. Trace: one more kernel-path build, one radix build and one sparse build
+   under `torch.profiler`: device time by kernel and the device's idle
+   share of each build's wall time.
 
 Standard output ends with a JSON line of per-kernel numbers, the card's
 name and power limit, and ``{"ok": true, "device": {...}}``.
@@ -71,6 +79,12 @@ N_LONGEST = 4
 PATH_KERNELS = {"kernel": {"bitonic_tile", "bitonic_cross", "seg_boundary"},
                 "radix": {"radix_hist", "radix_scatter"},
                 "sparse": {"radix_hist", "radix_scatter"}}
+
+#: the key loader's sweep in phase 2: shifts, lengths (below one block,
+#: whole and ragged blocks), blocks.
+PASS_SHIFTS = (0, 8, 16, 40, 56)
+PASS_NS = (1, 2, 999, 4096, 4097, 70_001, 2 ** 20 + 5, 2 ** 24)
+PASS_BLOCKS = (1024, 4096)
 
 #: HBM bandwidth (bytes/s) by card name, from NVIDIA's data sheets.
 DRAM_BYTES_PER_S = (("H200", 4.8e12), ("H100 NVL", 3.9e12),
@@ -202,6 +216,17 @@ def pass_digits(keys, shift: int, block: int):
     return digits
 
 
+def key_families():
+    """The key families of `tests/torch_pass_keys.py`, the module the card
+    and CPU tests draw theirs from."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        "torch_pass_keys", ROOT / "tests" / "torch_pass_keys.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
 def require_equal(name: str, got, want) -> int:
     """Exact equality of two integer tensors; returns the max abs error."""
     assert got.shape == want.shape and got.dtype == want.dtype, name
@@ -313,6 +338,30 @@ def radix_against_plain(dev, scale: int = 1) -> None:
         require_equal(f"radix_hist N={len(d)} bins={bins} block={block}",
                       ops.radix_histogram_blocks(d, bins, block),
                       ref.radix_histogram_ref(d, bins, block))
+    families = key_families()
+    checked = 0
+    for n in PASS_NS:
+        n = n if n <= 70_001 else n // scale
+        for kind in families.PASS_KINDS:
+            keys = torch.from_numpy(families.pass_keys(kind, n, rng)).to(dev)
+            for block in PASS_BLOCKS:
+                nb = -(-n // block)
+                for shift in PASS_SHIFTS:
+                    want = ref.radix_pass_counts_ref(keys, shift, block)
+                    require_equal(f"radix_hist keys {kind} N={n} "
+                                  f"block={block} shift={shift}",
+                                  ops.radix_pass_counts(keys, shift, block),
+                                  want)
+                    checked += 1
+                    require_equal(
+                        f"pass offsets {kind} N={n} block={block} "
+                        f"shift={shift} (staged route)",
+                        torch.cumsum(want, 0, dtype=torch.int32)[:-1]
+                        .view(256, nb),
+                        scan_offsets(pass_digits(keys, shift, block), n,
+                                     block))
+    log(f"radix_hist key loader against plain: {checked} launches equal, "
+        f"offsets equal to the staged route's")
     for n in (2 ** 20 // scale, 2 ** 20 // scale + 333):
         skewed = np.where(rng.random(n) < 0.9, 0, rng.integers(0, 256, n))
         for kind, keys in (("random", rng.integers(0, 2 ** 45, n)),
@@ -778,26 +827,68 @@ def kernel_times(dev, levels, launches, bandwidth: float):
     # radix: one pass of the level-0 window word, then the whole argsort
     bits = dcv_torch._word_bits(v, lo, hi)
     keys = words[0]
-    digits = pass_digits(keys, 0, block)
-    nb = digits.shape[0] // block
-    hist_ms = time_ms(lambda: ops.radix_histogram_blocks(digits, 257, block),
-                      dev, reps=10)
-    hist = ops.radix_histogram_blocks(digits, 257, block)
-    plain_hist_ms = time_ms(lambda: ref.radix_histogram_ref(digits, 257,
-                                                            block), dev)
-    hist_err = require_equal("radix_hist level 0", hist,
-                             ref.radix_histogram_ref(digits, 257, block))
-    flat_ids = (torch.arange(len(digits), device=dev) // block) * 257 + digits
-    lib_hist_ms = time_ms(lambda: torch.bincount(flat_ids,
-                                                 minlength=nb * 257), dev,
+    nb = -(-n_v // block)
+    counts_ms = time_ms(lambda: ops.radix_pass_counts(keys, 0, block), dev,
+                        reps=10)
+    counts = ops.radix_pass_counts(keys, 0, block)
+    plain_counts_ms = time_ms(lambda: ref.radix_pass_counts_ref(keys, 0,
+                                                                block), dev)
+    hist_err = require_equal("radix_hist key loader level 0", counts,
+                             ref.radix_pass_counts_ref(keys, 0, block))
+    slots = 1 + (keys & 255) * nb + torch.arange(n_v, device=dev) // block
+    lib_hist_ms = time_ms(lambda: torch.bincount(slots,
+                                                 minlength=counts.numel()),
+                          dev, reps=10)
+    del slots
+    pass_bytes = n_v * 8 + counts.numel() * 4
+    # the key loader on one constant key and on the word's top pass (shift
+    # 40 of 45 bits: 32 digits)
+    const = torch.full_like(keys, 7)
+    top = 8 * (-(-bits[0] // 8) - 1)
+    for what, k, sh in (("constant", const, 0), ("top_pass", keys, top)):
+        require_equal(f"radix_hist key loader level 0 {what}",
+                      ops.radix_pass_counts(k, sh, block),
+                      ref.radix_pass_counts_ref(k, sh, block))
+    constant_ms = time_ms(lambda: ops.radix_pass_counts(const, 0, block), dev,
                           reps=10)
-    const = torch.full_like(digits, 7)
-    const_hist_ms = time_ms(lambda: ops.radix_histogram_blocks(const, 257,
-                                                               block),
-                            dev, reps=10)
-    hist_bytes = digits.numel() * 4 + hist.numel() * 4
+    top_pass_ms = time_ms(lambda: ops.radix_pass_counts(keys, top, block),
+                          dev, reps=10)
+    del const
+
+    # the digit loader (the TPU kernel's contract) on the staged digits
+    digits = pass_digits(keys, 0, block)
+    digit_ms = time_ms(lambda: ops.radix_histogram_blocks(digits, 257, block),
+                       dev, reps=10)
+    digit_err = require_equal("radix_hist digit loader level 0",
+                              ops.radix_histogram_blocks(digits, 257, block),
+                              ref.radix_histogram_ref(digits, 257, block))
+    digit_bytes = digits.numel() * 4 + nb * 257 * 4
+
+    # a pass's digit work (shift 8), the old staged way and the new way
+    staged = digits.clone()
+    scan = torch.empty(256 * nb + 1, dtype=torch.int32, device=dev)
+
+    def old_pass():
+        staged[:n_v] = (keys >> 8) & 255
+        flat = ops.radix_histogram_blocks(staged, 257, block)[:, :256] \
+            .t().reshape(-1)
+        return (torch.cumsum(flat, 0, dtype=torch.int32) - flat).view(256, nb)
+
+    def new_pass():
+        torch.cumsum(ops.radix_pass_counts(keys, 8, block), 0,
+                     dtype=torch.int32, out=scan)
+        return scan[:-1].view(256, nb)
+
+    require_equal("pass offsets level 0 (staged route)", new_pass(),
+                  old_pass())
+    pass_work = {"old_ms": [], "new_ms": []}
+    for way in ("old", "new", "new", "old"):
+        pass_work[f"{way}_ms"].append(
+            time_ms(old_pass if way == "old" else new_pass, dev, reps=10))
+    del staged, scan
 
     offsets = scan_offsets(digits, n_v, block)
+    del digits
     payload = torch.arange(n_v, dtype=torch.int32, device=dev)
     scat_ms = time_ms(lambda: ops.radix_scatter(keys, payload, 0, offsets,
                                                 block), dev, reps=10)
@@ -847,14 +938,22 @@ def kernel_times(dev, levels, launches, bandwidth: float):
          "source": src + "radix_hist.cu",
          "replaces": "src/repro/kernels/radix_hist.py:20",
          "launches": launches["radix_hist"], "max_abs_err": hist_err,
-         "function": f"per-block histograms of int32[{digits.numel()}] "
-                     f"level-0 digits, 257 bins (256 + pad), block {block}",
-         "ms": hist_ms, "plain_ms": plain_hist_ms,
-         "bound_ms": 1e3 * hist_bytes / bandwidth, "bound_by": "bytes",
+         "function": f"key loader: one pass's bin-major digit counts of "
+                     f"int64[{n_v}] level-0 keys (shift 0), blocks of "
+                     f"{block}, into int32[{counts.numel()}]",
+         "ms": counts_ms, "plain_ms": plain_counts_ms,
+         "bound_ms": 1e3 * pass_bytes / bandwidth, "bound_by": "bytes",
          "library_ms": lib_hist_ms,
-         "library_call": "torch.bincount(block_id * 257 + digit) on "
-                         "precomputed ids",
-         "constant_digits_ms": const_hist_ms},
+         "library_call": "torch.bincount(1 + digit * nb + block_id, "
+                         "minlength=256 * nb + 1) on precomputed ids",
+         "constant_digits_ms": constant_ms, "top_pass_ms": top_pass_ms,
+         "digit_loader_ms": digit_ms,
+         "digit_loader_bound_ms": 1e3 * digit_bytes / bandwidth,
+         "digit_loader_max_abs_err": digit_err,
+         "digit_loader_function": f"per-block histograms of "
+                                  f"int32[{nb * block}] staged level-0 "
+                                  f"digits, 257 bins (256 + pad)",
+         "pass_digit_work": pass_work},
         {"name": "radix_scatter", "route": "cuda",
          "source": src + "radix_scatter.cu", "replaces": no_tpu,
          "replaces_note": "no TPU kernel: the JAX radix impl sorts on the "
@@ -881,21 +980,20 @@ def kernel_times(dev, levels, launches, bandwidth: float):
 
 
 # --------------------------------------------------------------- phase 7
-def trace_build(dev, idx, sort_impl: str = "auto", top: int = 8) -> dict:
-    """Device time by kernel over one build under torch.profiler, and the
-    device's idle share of its wall time (the profiler's own host overhead
-    is inside that wall time)."""
+def trace_build(dev, label: str, build, top: int = 10) -> dict:
+    """Device time by kernel over one call of build() under torch.profiler,
+    the device's idle share of its wall time and the host calls with the most
+    self time, where `cudaStreamSynchronize` is the host waiting on the
+    device (the profiler's own host overhead is inside all of these)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-    from repro_torch.api import SAOptions, build_suffix_array
     activities = [ProfilerActivity.CPU]
     if dev.type == "cuda":
         activities.append(ProfilerActivity.CUDA)
     sync(dev)
     with profile(activities=activities) as prof:
         t0 = time.perf_counter()
-        build_suffix_array(idx.text, SAOptions(sort_impl=sort_impl),
-                           device=dev)
+        build()
         sync(dev)
         wall_ms = 1e3 * (time.perf_counter() - t0)
     by_name: dict[str, list] = {}
@@ -906,10 +1004,28 @@ def trace_build(dev, idx, sort_impl: str = "auto", top: int = 8) -> dict:
             entry[1] += 1
     busy_ms = sum(ms for ms, _ in by_name.values())
     ranked = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:top]
-    return {"sort_impl": sort_impl, "wall_ms": wall_ms, "device_busy_ms": busy_ms,
+    host = sorted(prof.key_averages(), key=lambda a: -a.self_cpu_time_total)
+    return {"build": label, "wall_ms": wall_ms, "device_busy_ms": busy_ms,
             "device_idle_share": 1 - busy_ms / wall_ms if busy_ms else None,
             "top": [{"name": name[:90], "ms": ms, "count": count}
-                    for name, (ms, count) in ranked]}
+                    for name, (ms, count) in ranked],
+            "host_top": [{"name": a.key[:60],
+                          "self_ms": a.self_cpu_time_total / 1e3,
+                          "count": a.count} for a in host[:6]]}
+
+
+def traces(dev, text) -> None:
+    """Phase 7: a "kernel" and a "radix" build and a sparse build of
+    `text` under the profiler, one JSON line each."""
+    from repro_torch.api import SAOptions, build_suffix_array
+    from repro_torch.sparse import build_sparse_suffix_array
+    for impl in ("auto", "radix"):
+        log(json.dumps({"trace": trace_build(
+            dev, impl, lambda impl=impl: build_suffix_array(
+                text, SAOptions(sort_impl=impl), device=dev))}))
+    log(json.dumps({"trace": trace_build(
+        dev, f"sparse sample_rate={SPARSE_RATE}",
+        lambda: build_sparse_suffix_array(text, SPARSE_RATE, device=dev))}))
 
 
 def main() -> int:
@@ -940,12 +1056,14 @@ def main() -> int:
     bandwidth = dram_bytes_per_s(torch.cuda.get_device_name(0))
     levels = window_levels(dev, idx.text)
     table = kernel_times(dev, levels, launches, bandwidth)
+    for entry in table:
+        if entry["name"] in ("radix_hist", "radix_scatter"):
+            entry["launches_sparse"] = sparse["launches"][entry["name"]]
     per_level = bitonic_levels(dev, levels, bandwidth)
     del levels
     log(json.dumps({"builds_s": builds, "queries": rates, "sparse": sparse,
                     "bitonic_levels": per_level}))
-    for impl in ("auto", "radix"):
-        log(json.dumps({"trace": trace_build(dev, idx, impl)}))
+    traces(dev, idx.text)
     print(json.dumps({"kernels": table}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -48,6 +48,8 @@ _SIGNATURES = {
     "repro_seg_boundary": (_P, _P, _P, _P, _LL, _I, _I, _I, _I, _P),
     # digits, out, n, block, n_bins, device, stream
     "repro_radix_hist": (_P, _P, _LL, _I, _I, _I, _P),
+    # keys, out, n, block, shift, device, stream
+    "repro_radix_pass_counts": (_P, _P, _LL, _I, _I, _I, _P),
     # keys, payload, keys_out, payload_out, offsets, n, block, shift,
     # payload_bytes, device, stream
     "repro_radix_scatter": (_P, _P, _P, _P, _P, _LL, _I, _I, _I, _I, _P),

@@ -11,7 +11,9 @@
 * `dense_rank_sorted` — dense ranks of sorted rows: `seg_boundary` plus
   a block stitch in PyTorch ops (the Step-1 sample ranking);
 * `radix_histogram_blocks` / `radix_histogram` — per-block / global digit
-  histograms (`radix_hist.cu`);
+  histograms (`radix_hist.cu`, its digit loader);
+* `radix_pass_counts` — one radix pass's digit counts taken straight from
+  the int64 keys, bin-major (`radix_hist.cu`, its key loader);
 * `radix_scatter` — one stable 8-bit scatter pass (`radix_scatter.cu`);
 * `radix_argsort` — the stable LSD radix argsort of packed int64 words on
   those two (``sort_impl="radix"`` window sorts, the sparse build).
@@ -31,13 +33,14 @@ from . import ref
 from ._build import LAUNCHES
 from .bitonic_sort import bitonic_launch_cuda, schedule
 from .bitonic_stage import bitonic_stage_cuda
-from .radix_hist import radix_histogram_cuda
+from .radix_hist import radix_histogram_cuda, radix_pass_counts_cuda
 from .radix_scatter import radix_scatter_cuda
 from .seg_boundary import seg_boundary_cuda
 
 __all__ = ["LAUNCHES", "bitonic_launch", "bitonic_sort", "bitonic_stage",
            "dense_rank_sorted", "radix_argsort", "radix_histogram",
-           "radix_histogram_blocks", "radix_scatter", "seg_boundary"]
+           "radix_histogram_blocks", "radix_pass_counts", "radix_scatter",
+           "seg_boundary"]
 
 
 def _on_cuda(t: torch.Tensor, op: str) -> bool:
@@ -164,6 +167,17 @@ def radix_histogram(digits: torch.Tensor, n_bins: int,
         0, dtype=torch.int32)
 
 
+def radix_pass_counts(keys: torch.Tensor, shift: int,
+                      block: int = ref.SORT_BLOCK) -> torch.Tensor:
+    """Digit counts of one LSD pass over int64[N] non-negative `keys`:
+    int32[256 * ceil(N / block) + 1], a 0 and then, bin-major, the count
+    of each digit (key >> shift) & 255 in each block; see
+    `ref.radix_pass_counts_ref`."""
+    if _on_cuda(keys, "radix_hist"):
+        return radix_pass_counts_cuda(keys, shift, block)
+    return ref.radix_pass_counts_ref(keys, shift, block)
+
+
 def radix_scatter(keys: torch.Tensor, payload: torch.Tensor, shift: int,
                   offsets: torch.Tensor, block: int = ref.SORT_BLOCK, *,
                   write_keys: bool = True):
@@ -182,10 +196,10 @@ def radix_argsort(words, key_bits,
     first (each non-negative and below 2**key_bits; `key_bits` one int or
     one per word): int64[N] positions sorted by (words..., position).
 
-    ceil(key_bits / 8) passes a word, each one `radix_histogram_blocks`,
-    an exclusive scan of the counts and one `radix_scatter`
+    ceil(key_bits / 8) passes a word, each one `radix_pass_counts`, one
+    `torch.cumsum` of its counts into offsets and one `radix_scatter`
     (`ref.lsd_argsort`). On a CUDA tensor every pass runs the two kernels;
     nothing falls back to a library sort."""
     _on_cuda(words[0], "radix_argsort")
-    return ref.lsd_argsort(words, key_bits, radix_histogram_blocks,
+    return ref.lsd_argsort(words, key_bits, radix_pass_counts,
                            radix_scatter, block)

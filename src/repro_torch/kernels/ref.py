@@ -134,21 +134,39 @@ def radix_scatter_ref(keys: torch.Tensor, payload: torch.Tensor, shift: int,
     return keys_out, payload_out
 
 
-def lsd_argsort(words: Sequence[torch.Tensor], key_bits,
-                block_hist: Callable, scatter: Callable,
-                block: int = SORT_BLOCK) -> torch.Tensor:
+def radix_pass_counts_ref(keys: torch.Tensor, shift: int,
+                          block: int) -> torch.Tensor:
+    """One LSD pass's digit counts, bin-major and led by a zero: int64[N]
+    non-negative `keys` -> int32[256 * nb + 1], nb = ceil(N / block), with
+    element 0 equal to 0 and element 1 + d * nb + b the number of keys of
+    block b (positions b * block .. (b + 1) * block - 1 below N) whose
+    digit (key >> shift) & 255 is d. Its inclusive cumsum holds at
+    d * nb + b the exclusive bin-major offsets that `radix_scatter_ref`
+    takes."""
+    n = keys.shape[0]
+    nb = -(-n // block)
+    pos = torch.arange(n, device=keys.device)
+    slot = 1 + ((keys >> shift) & (RADIX_BINS - 1)) * nb + pos // block
+    out = torch.zeros(RADIX_BINS * nb + 1, dtype=torch.int32,
+                      device=keys.device)
+    return out.scatter_add_(0, slot, torch.ones_like(slot,
+                                                     dtype=torch.int32))
+
+
+def lsd_argsort(words: Sequence[torch.Tensor], key_bits, count: Callable,
+                scatter: Callable, block: int = SORT_BLOCK) -> torch.Tensor:
     """Stable LSD radix argsort of int64 word lists, most significant word
     first: the order that sorts positions by (words[0], words[1], ...,
     position).
 
     Every word must be non-negative and below 2**key_bits (`key_bits` is
     one int for all words or one per word, at most 63), so the pass count,
-    ceil(key_bits / 8) per word, is known on the host. Each pass takes its
-    8-bit digit with elementwise ops, counts the digits of each `block`
-    with ``block_hist(digits, n_bins, block)`` (a scratch bin 256 holds the
-    padding of the last block), scans the counts in bin-major, block-minor
-    order into start offsets, and moves keys and an int32 position payload
-    with ``scatter(keys, payload, shift, offsets, block, write_keys=)``.
+    ceil(key_bits / 8) per word, is known on the host. Each pass counts the
+    8-bit digits of each `block` straight from the keys with
+    ``count(keys, shift, block)`` (the zero-led bin-major counts of
+    `radix_pass_counts_ref`), turns them into start offsets with one
+    inclusive cumsum, and moves keys and an int32 position payload with
+    ``scatter(keys, payload, shift, offsets, block, write_keys=)``.
     Returns int64[N] on the words' device."""
     n = words[0].shape[0]
     device = words[0].device
@@ -163,9 +181,8 @@ def lsd_argsort(words: Sequence[torch.Tensor], key_bits,
     if n <= 1:
         return order.long()
     nb = -(-n // block)
-    digits = torch.full((nb * block,), RADIX_BINS, dtype=torch.int32,
-                        device=device)
-    n_bins = RADIX_BINS + (1 if nb * block > n else 0)
+    scan = torch.empty(RADIX_BINS * nb + 1, dtype=torch.int32, device=device)
+    offsets = scan[:RADIX_BINS * nb].view(RADIX_BINS, nb)
     first = True
     for word, width in zip(reversed(words), reversed(bits)):
         passes = -(-width // RADIX_BITS)
@@ -175,11 +192,8 @@ def lsd_argsort(words: Sequence[torch.Tensor], key_bits,
         first = False
         for p in range(passes):
             shift = p * RADIX_BITS
-            digits[:n] = (keys >> shift) & (RADIX_BINS - 1)
-            counts = block_hist(digits, n_bins, block)[:, :RADIX_BINS]
-            flat = counts.t().reshape(-1)
-            offsets = (torch.cumsum(flat, 0, dtype=torch.int32)
-                       - flat).view(RADIX_BINS, nb)
+            torch.cumsum(count(keys, shift, block), 0, dtype=torch.int32,
+                         out=scan)
             keys, order = scatter(keys, order, shift, offsets, block,
                                   write_keys=p + 1 < passes)
     return order.long()
@@ -188,6 +202,6 @@ def lsd_argsort(words: Sequence[torch.Tensor], key_bits,
 def radix_argsort_ref(words: Sequence[torch.Tensor], key_bits,
                       block: int = SORT_BLOCK) -> torch.Tensor:
     """`ops.radix_argsort` on the plain versions: the same LSD driver
-    (`lsd_argsort`) with `radix_histogram_ref` and `radix_scatter_ref`."""
-    return lsd_argsort(words, key_bits, radix_histogram_ref,
+    (`lsd_argsort`) with `radix_pass_counts_ref` and `radix_scatter_ref`."""
+    return lsd_argsort(words, key_bits, radix_pass_counts_ref,
                        radix_scatter_ref, block)

@@ -15,6 +15,7 @@ from repro_torch.core.dcv_torch import _order_from_words, suffix_array_torch
 from repro_torch.kernels import bitonic_sort as bsort
 from repro_torch.kernels import ops, ref
 from repro_torch.sparse import build_sparse_suffix_array
+from torch_pass_keys import PASS_KINDS, pass_keys
 
 pytestmark = pytest.mark.gpu
 
@@ -162,6 +163,42 @@ def test_radix_hist_kernel_matches_plain(cuda, n, bins, block):
             atol=0)
 
 
+def _pass_keys(kind, n):
+    return torch.from_numpy(
+        pass_keys(kind, n, np.random.default_rng([n, len(kind)])))
+
+
+@pytest.mark.parametrize("kind", PASS_KINDS)
+@pytest.mark.parametrize("n", [1, 2, 999, 4096, 4097, 70_001, 2 ** 20 + 5,
+                               2 ** 24])
+@pytest.mark.parametrize("block", [1024, 4096])
+def test_radix_pass_counts_kernel_matches_plain(cuda, kind, n, block):
+    # the key loader against the plain version: the zero-led bin-major
+    # counts, equal element for element
+    keys = _pass_keys(kind, n)
+    on_card = keys.to(cuda)
+    for shift in (0, 8, 16, 40, 56):
+        want = ref.radix_pass_counts_ref(keys, shift, block)
+        before = ops.LAUNCHES["radix_hist"]
+        got = ops.radix_pass_counts(on_card, shift, block)
+        assert ops.LAUNCHES["radix_hist"] == before + 1
+        torch.testing.assert_close(got.cpu(), want, rtol=0, atol=0)
+
+
+def test_radix_pass_counts_kernel_reads_unaligned_keys(cuda):
+    # a view that starts 8 bytes into its storage takes the one-element path
+    keys = _pass_keys("random", 10_001).to(cuda)
+    for block in (1024, 4096):
+        torch.testing.assert_close(
+            ops.radix_pass_counts(keys[1:], 16, block),
+            ref.radix_pass_counts_ref(keys[1:], 16, block), rtol=0, atol=0)
+    # no keys: the leading zero alone, and no launch counted
+    before = ops.LAUNCHES["radix_hist"]
+    empty = ops.radix_pass_counts(keys[:0], 0, 4096)
+    assert empty.tolist() == [0]
+    assert ops.LAUNCHES["radix_hist"] == before
+
+
 @pytest.mark.parametrize("kind", ["random", "constant", "distinct",
                                   "skewed"])
 @pytest.mark.parametrize("n,block", [(1000, 256), (70_001, 1024),
@@ -181,11 +218,8 @@ def test_radix_scatter_kernel_matches_plain(cuda, kind, n, block,
         .astype(np.int64))
     shift = 24
     nb = -(-n // block)
-    digits = torch.full((nb * block,), 256, dtype=torch.int32)
-    digits[:n] = (keys >> shift) & 255
-    counts = ref.radix_histogram_ref(digits, 257, block)[:, :256]
-    flat = counts.t().reshape(-1)
-    offsets = (torch.cumsum(flat, 0, dtype=torch.int32) - flat).view(256, nb)
+    offsets = torch.cumsum(ref.radix_pass_counts_ref(keys, shift, block), 0,
+                           dtype=torch.int32)[:-1].view(256, nb)
     payload = torch.arange(n, dtype=payload_dtype)
     want = ref.radix_scatter_ref(keys, payload, shift, offsets, block)
     got = ops.radix_scatter(keys.to(cuda), payload.to(cuda), shift,

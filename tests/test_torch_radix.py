@@ -1,10 +1,12 @@
-"""The port's radix histogram and LSD radix argsort
+"""The port's radix histogram, pass counts and LSD radix argsort
 (`repro_torch.kernels.ops` on CPU tensors, i.e. the plain versions in
 `repro_torch.kernels.ref`) held against the JAX package's histogram oracle
 (`repro.kernels.ref.radix_histogram_ref`), its Pallas kernel in interpret
 mode (`radix_histogram_pallas`), its wrapper (`repro.kernels.ops`) and
 `numpy.lexsort`, at the sweeps of tests/kernels/test_kernel_parity.py and
-tests/kernels/test_kernels.py.
+tests/kernels/test_kernels.py. The pass counts (the key loader's
+contract) are held against the staged-digit route they replace, counted by
+the oracle and by the Pallas kernel.
 
 Inputs are made with numpy from a seed; every comparison is on integers and
 exact (tolerance 0). The CUDA kernels themselves are held against these
@@ -20,8 +22,10 @@ from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro.kernels.radix_hist import radix_histogram_pallas
 from repro_torch.kernels import ops, ref
-from repro_torch.kernels.radix_hist import radix_histogram_cuda
+from repro_torch.kernels.radix_hist import (radix_histogram_cuda,
+                                            radix_pass_counts_cuda)
 from repro_torch.kernels.radix_scatter import radix_scatter_cuda
+from torch_pass_keys import PASS_KINDS, pass_keys
 
 SEED = 20261017
 
@@ -91,6 +95,109 @@ def test_radix_histogram_ignores_out_of_range_digits():
     d = np.array([-1, 0, 3, 4, 9, 3, 2, 100], np.int32)
     _eq(ref.radix_histogram_ref(torch.from_numpy(d), 4, 4),
         jref.radix_histogram_ref(jnp.asarray(d), 4, 4))
+
+
+# ------------------------------------------- pass counts from the keys
+def _staged_digits(keys, shift, block):
+    """The earlier `lsd_argsort` staging: int32 digits padded to whole blocks
+    with the scratch bin 256."""
+    nb = -(-len(keys) // block)
+    digits = np.full(nb * block, 256, np.int32)
+    digits[:len(keys)] = (keys >> shift) & 255
+    return digits
+
+
+def _zero_led_bin_major(per_block):
+    """[nb, 257] per-block histograms -> the pass counts' layout: the pad
+    bin dropped, transposed to bin-major, flattened and led by 0."""
+    flat = np.asarray(per_block)[:, :256].T.reshape(-1)
+    return np.concatenate([[0], flat]).astype(np.int32)
+
+
+@pytest.mark.parametrize("block", [1024, 4096])
+@pytest.mark.parametrize("n", [1, 2, 999, 4096, 4097, 70_001])
+@pytest.mark.parametrize("shift", [0, 8, 16, 40, 56])
+def test_radix_pass_counts_ref_matches_the_staged_route(shift, n, block):
+    # the key loader's plain version against the route it replaces: staged
+    # digits counted by the JAX oracle and by the Pallas kernel in
+    # interpret mode (one call over the four key kinds' digits, each
+    # padded to whole blocks, so block rows stay apart)
+    rng = np.random.default_rng([SEED, shift, n, block])
+    keys = {kind: pass_keys(kind, n, rng) for kind in PASS_KINDS}
+    staged = np.concatenate([_staged_digits(k, shift, block)
+                             for k in keys.values()])
+    oracle = np.asarray(jref.radix_histogram_ref(jnp.asarray(staged), 257,
+                                                 block))
+    pallas = np.asarray(radix_histogram_pallas(jnp.asarray(staged), 257,
+                                               block=block))
+    np.testing.assert_array_equal(pallas, oracle)
+    nb = -(-n // block)
+    for i, (kind, k) in enumerate(keys.items()):
+        got = ref.radix_pass_counts_ref(torch.from_numpy(k), shift, block)
+        assert got.shape == (256 * nb + 1,), kind
+        _eq(got, _zero_led_bin_major(oracle[i * nb:(i + 1) * nb]))
+        _eq(ops.radix_pass_counts(torch.from_numpy(k), shift, block), got)
+
+
+@pytest.mark.parametrize("kind", PASS_KINDS)
+@pytest.mark.parametrize("n", [2, 999, 4097, 70_001])
+@pytest.mark.parametrize("block", [1024, 4096])
+def test_radix_pass_counts_scan_gives_the_old_offsets(kind, n, block):
+    # one inclusive int32 cumsum of the zero-led counts equals the earlier
+    # `lsd_argsort` exclusive scan (transpose, cumsum, minus the counts), bit
+    # for bit, and is the contiguous [256, nb] view the scatter takes
+    rng = np.random.default_rng([SEED, n, block, len(kind)])
+    keys = torch.from_numpy(pass_keys(kind, n, rng))
+    nb = -(-n // block)
+    for shift in (0, 8, 40, 56):
+        counts = ref.radix_pass_counts_ref(keys, shift, block)
+        scan = torch.cumsum(counts, 0, dtype=torch.int32)
+        offsets = scan[:256 * nb].view(256, nb)
+        per_block = ref.radix_histogram_ref(
+            torch.from_numpy(_staged_digits(keys.numpy(), shift, block)),
+            257, block)[:, :256]
+        flat = per_block.t().reshape(-1)
+        old = (torch.cumsum(flat, 0, dtype=torch.int32) - flat).view(256, nb)
+        assert offsets.dtype == torch.int32 and offsets.is_contiguous()
+        _eq(offsets, old.numpy())
+        # the offsets make a stable counting pass (the scatter's contract)
+        _, order = ops.radix_scatter(keys, torch.arange(n, dtype=torch.int32),
+                                     shift, offsets, block)
+        np.testing.assert_array_equal(
+            order.numpy(),
+            np.argsort((keys.numpy() >> shift) & 255, kind="stable"))
+
+
+def test_radix_pass_counts_ref_edges():
+    # no keys: just the leading zero; one key: one count in its digit's row
+    assert ref.radix_pass_counts_ref(torch.zeros(0, dtype=torch.int64), 0,
+                                     4096).tolist() == [0]
+    one = ref.radix_pass_counts_ref(torch.tensor([0x1234]), 8, 4096)
+    assert one.shape == (257,) and one.sum() == 1 and one[1 + 0x12] == 1
+
+
+def test_lsd_argsort_counts_each_pass_from_the_keys():
+    # one count and one scatter a pass, both handed the int64 keys and the
+    # pass's shift: no digits are staged between them
+    rng = np.random.default_rng(SEED + 5)
+    words = [torch.from_numpy(rng.integers(0, 2 ** b, 3000))
+             for b in (45, 30, 3)]
+    counted, scattered = [], []
+
+    def count(keys, shift, block):
+        assert keys.dtype == torch.int64 and keys.shape == (3000,)
+        counted.append(shift)
+        return ref.radix_pass_counts_ref(keys, shift, block)
+
+    def scatter(keys, payload, shift, offsets, block, *, write_keys):
+        scattered.append(shift)
+        return ref.radix_scatter_ref(keys, payload, shift, offsets, block,
+                                     write_keys=write_keys)
+
+    got = ref.lsd_argsort(words, [45, 30, 3], count, scatter, 1024)
+    np.testing.assert_array_equal(got.numpy(), _lexsort(words))
+    passes = [0] + list(range(0, 32, 8)) + list(range(0, 48, 8))
+    assert counted == scattered == passes
 
 
 # ----------------------------------------------------------- scatter pass
@@ -210,6 +317,18 @@ def test_radix_cpu_tensors_never_count_as_kernel_launches():
     ops.radix_argsort(words, 3)
     ops.radix_histogram(torch.zeros(3000, dtype=torch.int32), 4)
     assert ops.LAUNCHES == before
+
+
+def test_radix_pass_counts_refuses_non_cuda_tensors():
+    keys = torch.zeros(1024, dtype=torch.int64)
+    with pytest.raises(ValueError, match="CUDA"):
+        radix_pass_counts_cuda(keys, 0, 1024)
+    before = dict(ops.LAUNCHES)
+    ops.radix_pass_counts(keys, 0, 1024)
+    assert ops.LAUNCHES == before
+    with pytest.raises(ValueError, match="device"):
+        ops.radix_pass_counts(torch.empty(8, dtype=torch.int64,
+                                          device="meta"), 0)
 
 
 def test_radix_launchers_refuse_non_cuda_tensors():
