@@ -48,6 +48,27 @@ Phases (any failure exits non-zero; no phase's exception is caught):
 7. Trace: one more kernel-path build, one radix build and one sparse build
    under `torch.profiler`: device time by kernel and the device's idle
    share of each build's wall time.
+8. Serving, every step on the card: (a) `SAServer(max_batch=64)` with the
+   reference defaults (coalesce wait 500 us, queue depth 1024, policy
+   "reject") over the phase-3 index, warmed over the phase-4 length
+   buckets and driven by seeded Poisson arrivals at 2,000 qps over the
+   phase-4 patterns: every future must resolve, every status be ok,
+   rejected or shed, every ok count equal `count_batch`'s and every
+   admitted planted pattern hit; the dense index once more at 1,000
+   qps, below the server's capacity; beside it a closed-loop
+   `QuerySession(batch_size=64)` rate, and ten of its ticks under
+   `torch.profiler`; (b) the same over the phase-5 sparse index, its
+   counts equal to the dense ones; (c) an
+   `IndexStore` round trip of the phase-3 corpus (miss, then hit; the
+   restored SA equal to the built SA; a changed corpus and a changed plan
+   raise `StaleIndexError`) and of the sparse index; (d) the entry point
+   `serve_sa_queries` at the default `SAConfig` (2^20 chars), monolithic
+   with a store (cold, then a warm restart that builds nothing) and with
+   8 segments, 4 ingests and a `SegmentedIndexStore` (one segment build
+   per ingest plus compaction merges; counts equal to a monolithic index
+   over the same documents), then `python -m repro_torch.launch.serve
+   --arch suffix-array --smoke`. Each build launches exactly its path's
+   kernels and serving launches none.
 
 Standard output ends with a JSON line of per-kernel numbers, the card's
 name and power limit, and ``{"ok": true, "device": {...}}``.
@@ -55,8 +76,10 @@ name and power limit, and ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import json
+import os
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 from unittest import mock
@@ -75,10 +98,24 @@ SEED = 20261017
 SPARSE_RATE = 16
 N_LONGEST = 4
 
+#: phase 8: the open-loop server's knobs (the reference defaults but for
+#: max_batch) and the entry point's corpus (default SAConfig: 2^20 chars).
+SERVE_QPS = 2000.0
+#: a second dense run below the server's capacity (~1,700-1,850 qps on an
+#: H100), whose latencies describe a steady queue, not a growing backlog.
+SERVE_STEADY_QPS = 1000.0
+SERVE_BATCH = 64
+SERVE_DOCS = 64
+SERVE_QUERIES = 2048
+SERVE_SEGMENTS = 8
+SERVE_INGEST = 4
+
 #: kernels each path must launch, and no others.
 PATH_KERNELS = {"kernel": {"bitonic_tile", "bitonic_cross", "seg_boundary"},
                 "radix": {"radix_hist", "radix_scatter"},
                 "sparse": {"radix_hist", "radix_scatter"}}
+#: every kernel the builds of phase 8 must launch between them.
+SERVING_KERNELS = PATH_KERNELS["kernel"] | PATH_KERNELS["sparse"]
 
 #: the key loader's sweep in phase 2: shifts, lengths (below one block,
 #: whole and ragged blocks), blocks.
@@ -580,7 +617,7 @@ def sparse_path(dev, idx, docs, pats, counts, located) -> dict:
               for k, v in times.items()}}
     log(f"path (B): sparse SA = dense SA at multiples of {SPARSE_RATE}; "
         f"{len(pats)} counts and positions equal dense; {json.dumps(out)}")
-    return out
+    return out, sp
 
 
 # --------------------------------------------------------------- phase 6
@@ -1028,6 +1065,261 @@ def traces(dev, text) -> None:
         lambda: build_sparse_suffix_array(text, SPARSE_RATE, device=dev))}))
 
 
+# --------------------------------------------------------------- phase 8
+def counted(dev, path, fn, total: dict):
+    """fn() with the launch counts set to 0 just before and read just
+    after: on the card exactly the kernels of `path` must have launched
+    (none for path None). The counts are added into `total`."""
+    from repro_torch.kernels import ops
+    zero_launches()
+    out = fn()
+    sync(dev)
+    launches = dict(ops.LAUNCHES)
+    if path is None:
+        assert not any(launches.values()), launches
+    else:
+        launched(dev, path, launches)
+    for key, n in launches.items():
+        total[key] = total.get(key, 0) + n
+    return out
+
+
+def latency_ms(hist: dict) -> dict:
+    """p50/p95/p99/mean of a `ServeMetrics` histogram summary, in ms."""
+    return {k: None if hist[k] is None else hist[k] * 1e-3
+            for k in ("p50", "p95", "p99", "mean")}
+
+
+def open_loop(dev, index, pats, counts, qps: float, total: dict) -> dict:
+    """One open-loop run: `SAServer` over `index` with the reference
+    defaults (max_batch 64), warmed over the patterns' length buckets,
+    under seeded Poisson arrivals at `qps` cycling through `pats`.
+    `counts` are the dense `count_batch` answers; even-numbered patterns
+    are planted. The total latency's p50 over the first and the second
+    half of the arrivals tells a steady queue from a growing one."""
+    import numpy as np
+    from repro_torch.api import pow2_bucket
+    from repro_torch.serve import (SAServer, make_arrivals, run_open_loop,
+                                   summarize)
+    lens = sorted({pow2_bucket(len(p), floor=8) for p in pats})
+    server = SAServer(index, max_batch=SERVE_BATCH)
+    with server:
+        t0 = time.perf_counter()
+        shapes = counted(dev, None, lambda: server.warmup(pattern_lens=lens),
+                         total)
+        warm_s = time.perf_counter() - t0
+        arrivals = make_arrivals("poisson", qps, len(pats) / qps, seed=SEED)
+        t0 = time.perf_counter()
+        responses = counted(dev, None, lambda: run_open_loop(
+            server, pats, arrivals), total)
+        run_s = time.perf_counter() - t0
+    statuses = {r.status for r in responses}
+    assert statuses <= {"ok", "rejected", "shed"}, statuses
+    served = [(i % len(pats), r) for i, r in enumerate(responses) if r.ok]
+    assert served, "no request was served"
+    got = np.asarray([r.count for _, r in served])
+    assert np.array_equal(got, counts[[q for q, _ in served]]), \
+        "a served count differs from count_batch"
+    assert all(r.count >= 1 for q, r in served if q % 2 == 0), \
+        "an admitted planted pattern missed"
+    summary = summarize(responses, run_s)
+    snap = server.metrics.snapshot()
+    half = len(responses) // 2
+    halves = [[r.total_us * 1e-3 for r in part if r.ok]
+              for part in (responses[:half], responses[half:])]
+    return {"arrivals": len(arrivals), "offered_qps": qps,
+            "run_s": run_s, "goodput_qps": summary["goodput_qps"],
+            "ok": summary["ok"], "rejected": summary["rejected"],
+            "shed": summary["shed"], "warmup_shapes": shapes,
+            "warmup_s": warm_s,
+            "queue_ms": latency_ms(snap["queue_wait_us"]),
+            "service_ms": latency_ms(snap["service_us"]),
+            "total_ms": latency_ms(snap["total_us"]),
+            "total_p50_ms_by_half": [float(np.median(h)) if h else None
+                                     for h in halves],
+            "batches": snap["batch_size"]["count"],
+            "mean_batch": snap["batch_size"]["mean"],
+            "mean_occupancy": snap["bucket_occupancy"]["mean"],
+            "gc_pauses": snap["counters"]["gc_pauses"]}
+
+
+def serve_open_loop(dev, index, pats, counts, total: dict,
+                    rates=(SERVE_QPS,)) -> dict:
+    """Phase 8 (a)/(b): `open_loop` at each offered rate in `rates` (the
+    first one's record at the top level, the others under `at_qps`); then
+    a closed-loop `QuerySession` over the same patterns, and ten of its
+    ticks under `torch.profiler`."""
+    import numpy as np
+    from repro_torch.api import QuerySession, pow2_bucket
+    out = open_loop(dev, index, pats, counts, rates[0], total)
+    out["at_qps"] = [open_loop(dev, index, pats, counts, qps, total)
+                     for qps in rates[1:]]
+    lens = sorted({pow2_bucket(len(p), floor=8) for p in pats})
+    session = QuerySession(index, batch_size=SERVE_BATCH)
+    session.warmup(pattern_lens=lens)
+    closed = counted(dev, None, lambda: session.count(pats), total)
+    assert np.array_equal(closed, counts), "QuerySession counts differ"
+    closed_summary = session.latency_summary()
+    # ten ticks under the profiler: the search's device time and idle share
+    traced = trace_build(dev, "10 QuerySession ticks",
+                         lambda: session.count(pats[:10 * SERVE_BATCH]),
+                         top=5)
+    out["closed_loop"] = {"batch_size": SERVE_BATCH,
+                          "patterns_per_s": closed_summary["qps"],
+                          "tick_p50_ms": closed_summary["p50_us"] * 1e-3,
+                          "tick_p99_ms": closed_summary["p99_us"] * 1e-3,
+                          "trace": traced}
+    return out
+
+
+def store_round_trip(dev, idx, sp, docs, total: dict, root: str) -> dict:
+    """Phase 8 (c): `IndexStore` round trips of the phase-3 corpus, dense
+    and sparse: miss (build + save), then hit (load, no build); the
+    restored SA equals the built one element for element; a changed
+    corpus and a changed plan raise `StaleIndexError`."""
+    import torch
+    from repro_torch.api import (IndexStore, SAOptions, StaleIndexError,
+                                 SuffixArrayIndex, corpus_fingerprint)
+    store = IndexStore(root, device=dev)
+    text = idx.text.cpu().numpy()
+    t0 = time.perf_counter()
+    sha = corpus_fingerprint(text)
+    out = {"fingerprint_s": time.perf_counter() - t0,
+           "text_bytes": text.nbytes}
+    for name, opts, path, want in (
+            ("dense", SAOptions(), "kernel", idx),
+            ("sparse", SAOptions(sample_rate=SPARSE_RATE), "sparse", sp)):
+        built_s = []
+
+        def build(opts=opts):
+            t = time.perf_counter()
+            built = SuffixArrayIndex.from_docs(docs, opts, device=dev)
+            sync(dev)
+            built_s.append(time.perf_counter() - t)
+            return built
+
+        t0 = time.perf_counter()
+        built, status = counted(dev, path, lambda: store.get_or_build(
+            name, build, options=opts, corpus_sha=sha), total)
+        miss_s = time.perf_counter() - t0
+        assert status == "miss", status
+        t0 = time.perf_counter()
+        restored, status = counted(dev, None, lambda: store.get_or_build(
+            name, build, options=opts, corpus_sha=sha), total)
+        load_s = time.perf_counter() - t0
+        assert status == "hit" and len(built_s) == 1, status
+        assert restored.sa.device == built.sa.device
+        assert torch.equal(restored.sa, built.sa), f"{name}: restored SA"
+        assert torch.equal(built.sa, want.sa), f"{name}: built SA"
+        assert torch.equal(restored.text, idx.text), f"{name}: text"
+        out[name] = {"build_s": built_s[0], "save_s": miss_s - built_s[0],
+                     "load_s": load_s,
+                     "sa_bytes": built.sa.numel() * built.sa.element_size()}
+    changed = text.copy()
+    changed[len(changed) // 2] ^= 1
+    for kw in ({"expect_corpus_sha": corpus_fingerprint(changed)},
+               {"options": SAOptions(sort_impl="radix")}):
+        try:
+            store.load("dense", **kw)
+        except StaleIndexError:
+            continue
+        raise AssertionError(f"a stale entry loaded ({sorted(kw)})")
+    out["stats"] = store.stats()
+    assert out["stats"] == {"entries": 2, "hits": 2, "misses": 2,
+                            "stale": 0}, out["stats"]
+    return out
+
+
+def entry_point(dev, total: dict, root: str, n_docs: int = SERVE_DOCS,
+                n_queries: int = SERVE_QUERIES, n_chars=None) -> dict:
+    """Phase 8 (d): `serve_sa_queries` at the default `SAConfig`, once
+    monolithic with an `IndexStore` (cold, then warm), once with segments,
+    ingests and a `SegmentedIndexStore`; then the CLI in a process of its
+    own."""
+    import numpy as np
+    import torch
+    from repro_torch.api import SuffixArrayIndex, builder_cache_stats
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import serve_sa_queries
+    cfg = get_config("suffix-array")
+    kw = {"n_chars": n_chars or cfg.n, "n_docs": n_docs,
+          "n_queries": n_queries, "device": dev}
+
+    def run_summary(run):
+        return {"store": run.store_status, "build_s": run.build_s,
+                "n": run.index.n, "ok": run.summary["ok"],
+                "rejected": run.summary["rejected"],
+                "shed": run.summary["shed"],
+                "goodput_qps": run.summary["goodput_qps"],
+                "p50_ms": run.summary["p50_ms"],
+                "p99_ms": run.summary["p99_ms"],
+                "service_ms": latency_ms(run.metrics["service_us"]),
+                "mean_batch": run.metrics["batch_size"]["mean"]}
+
+    mono_dir = os.path.join(root, "mono")
+    cold = counted(dev, "kernel", lambda: serve_sa_queries(
+        cfg, store_dir=mono_dir, **kw), total)
+    assert cold.store_status == "miss", cold.store_status
+    before = builder_cache_stats()
+    warm = counted(dev, None, lambda: serve_sa_queries(
+        cfg, store_dir=mono_dir, **kw), total)
+    assert warm.store_status == "hit", warm.store_status
+    assert builder_cache_stats() == before, "a warm restart built"
+    assert torch.equal(warm.index.sa, cold.index.sa)
+    seg = counted(dev, "kernel", lambda: serve_sa_queries(
+        cfg, store_dir=os.path.join(root, "segmented"),
+        segments=SERVE_SEGMENTS, ingest=SERVE_INGEST, **kw), total)
+    ing = seg.ingest
+    assert ing["docs"] == SERVE_INGEST and \
+        ing["builds"] == SERVE_INGEST + ing["merges"], ing
+    sidx = seg.index
+    mono = counted(dev, "kernel", lambda: SuffixArrayIndex.from_docs(
+        [sidx.doc(i) for i in sidx.doc_ids], cfg.to_options(), sigma=256,
+        device=dev), total)
+    assert mono.n == sidx.n
+    assert np.array_equal(sidx.count_batch(seg.patterns),
+                          mono.count_batch(seg.patterns)), \
+        "segmented counts differ from the monolithic index's"
+    t0 = time.perf_counter()
+    cli = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve", "--arch",
+         "suffix-array", "--smoke", "--device", str(dev)],
+        cwd=ROOT, capture_output=True, text=True, timeout=600,
+        env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
+    assert cli.returncode == 0, cli.stdout + cli.stderr
+    assert "served" in cli.stdout, cli.stdout
+    return {"cold": run_summary(cold), "warm": run_summary(warm),
+            "segmented": {**run_summary(seg), "ingest": ing,
+                          "segments": sidx.n_segments},
+            "cli_s": time.perf_counter() - t0,
+            "cli_last_line": cli.stdout.strip().splitlines()[-1]}
+
+
+def serving(dev, idx, sp, docs, pats, counts) -> dict:
+    """Phase 8: (a) dense and (b) sparse open-loop serving, (c) the store,
+    (d) the entry point; returns its record and the kernel launches of
+    its builds."""
+    import numpy as np
+    total: dict = {}
+    counts = np.asarray(counts)
+    out = {"dense": serve_open_loop(dev, idx, pats, counts, total,
+                                    rates=(SERVE_QPS, SERVE_STEADY_QPS))}
+    log(json.dumps({"serving_dense": out["dense"]}))
+    out["sparse"] = serve_open_loop(dev, sp, pats, counts, total)
+    log(json.dumps({"serving_sparse": out["sparse"]}))
+    (ROOT / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as root:
+        out["store"] = store_round_trip(dev, idx, sp, docs, total, root)
+        log(json.dumps({"serving_store": out["store"]}))
+        out["entry_point"] = entry_point(dev, total, root)
+    log(json.dumps({"serving_entry_point": out["entry_point"]}))
+    if dev.type == "cuda":
+        missing = {k for k in SERVING_KERNELS if not total.get(k)}
+        assert not missing, f"phase 8 never launched {sorted(missing)}"
+    out["launches"] = total
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1052,7 +1344,7 @@ def main() -> int:
     docs = make_corpus(N_DOCS, DOC_LEN, SEED)
     idx, launches, builds = main_path(dev, docs)
     rates, pats, counts, located = queries(dev, idx, docs, N_PATTERNS)
-    sparse = sparse_path(dev, idx, docs, pats, counts, located)
+    sparse, sp = sparse_path(dev, idx, docs, pats, counts, located)
     bandwidth = dram_bytes_per_s(torch.cuda.get_device_name(0))
     levels = window_levels(dev, idx.text)
     table = kernel_times(dev, levels, launches, bandwidth)
@@ -1064,6 +1356,14 @@ def main() -> int:
     log(json.dumps({"builds_s": builds, "queries": rates, "sparse": sparse,
                     "bitonic_levels": per_level}))
     traces(dev, idx.text)
+    served = serving(dev, idx, sp, docs, pats, counts)
+    for entry in table:
+        names = ("bitonic_tile", "bitonic_cross") \
+            if entry["name"] == "bitonic_sort" else \
+            ("radix_scatter",) if entry["name"] == "radix_argsort" else \
+            (entry["name"],)
+        entry["launches_serving"] = sum(served["launches"].get(k, 0)
+                                        for k in names)
     print(json.dumps({"kernels": table}))
     print(card)
     print(json.dumps({"ok": True, "device": {

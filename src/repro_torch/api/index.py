@@ -19,7 +19,10 @@ The port of `repro.api.index`:
 * `longest_match` / `longest_match_len` — the longest substring of a
   sequence that occurs in the index, by a binary search over lengths;
 * `ngram_stats`, `duplicate_spans`, `cross_doc_duplicates` — over the
-  lazily computed LCP array (Kasai, numpy on the host).
+  lazily computed LCP array (Kasai, numpy on the host);
+* `stage_encoded` / `ranges_staged` — the serving tier's two-step
+  protocol (`repro_torch.serve`); `save` / `load` — persistence through
+  `repro_torch.api.store`.
 
 `text` (int64) and `sa` (int32) are tensors on the index's device; the
 query methods return the numpy int64 arrays that the JAX package's index
@@ -39,7 +42,7 @@ from ..core.compat import resolve_device
 from ..text.lcp import lcp_kasai, repeated_substring_spans
 from .build import build_suffix_array
 from .options import SAOptions
-from .query import QueryBatch, batch_ranges
+from .query import QueryBatch, batch_ranges, stage_batch
 
 INT32_MAX = 2 ** 31 - 1
 
@@ -203,11 +206,18 @@ class SuffixArrayIndex:
 
     # --------------------------------------------------------- persistence
     def save(self, path: str) -> str:
-        raise NotImplementedError("index persistence is not ported yet")
+        """Persist this index under `path` (`repro_torch.api.store
+        .save_index`); an index saved here loads in `repro` and back."""
+        from .store import save_index
+        return save_index(path, self)
 
     @classmethod
-    def load(cls, path: str, *, options: SAOptions | None = None):
-        raise NotImplementedError("index persistence is not ported yet")
+    def load(cls, path: str, *, options: SAOptions | None = None,
+             device="cuda") -> "SuffixArrayIndex":
+        """Restore an index persisted by `save` (or by `repro`) onto
+        `device` (`repro_torch.api.store.load_index`)."""
+        from .store import load_index
+        return load_index(path, options=options, device=device)
 
     # ----------------------------------------------------------- structure
     @property
@@ -364,6 +374,31 @@ class SuffixArrayIndex:
                                  np.asarray(off, np.int64).ravel()], axis=1)
                        if len(pos) else np.zeros((0, 2), np.int64))
         return out
+
+    # --------------------------------------------------- encoded fan-in API
+    def _counts_encoded(self, enc) -> np.ndarray:
+        """Counts for already-encoded patterns (`_encode_pattern` output):
+        the per-segment primitive a `SegmentedIndex` fans out over, for
+        dense and sparse segments alike."""
+        return self.count_batch(QueryBatch.from_encoded(self, enc))
+
+    def _positions_encoded(self, enc) -> list:
+        """Sorted encoded positions per already-encoded pattern."""
+        return self.locate_batch(QueryBatch.from_encoded(self, enc))
+
+    # ------------------------------------------------- serving-tier protocol
+    def stage_encoded(self, enc):
+        """Package already-encoded patterns for the serving tier and begin
+        their host→device copy (`stage_batch`). Returns an opaque work
+        item for `ranges_staged`; `repro_torch.serve.SAServer` stages on
+        one thread and resolves on another."""
+        batch = QueryBatch.from_encoded(self, enc)
+        return (batch, stage_batch(self, batch) if self.n else None)
+
+    def ranges_staged(self, work) -> tuple[np.ndarray, np.ndarray]:
+        """Resolve a `stage_encoded` work item to its (lo, hi) SA ranges."""
+        batch, staged = work
+        return batch_ranges(self, batch, staged=staged)
 
     # ----------------------------------------------------- scalar shims
     def count(self, pattern) -> int:

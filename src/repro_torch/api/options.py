@@ -27,6 +27,13 @@ SCHEDULES: dict[str, Callable[[int, int, int], int]] = {
 
 AUTO = "auto"
 
+#: plan field → {port name: the JAX package's name} where the two differ:
+#: the torch backend is the counterpart of "jax", the stock-sort and
+#: hand-kernel window sorts of "lax" and "pallas". Names not listed
+#: ("auto", "oracle", "seq", "bsp", "radix") are spelled alike.
+REFERENCE_NAMES = {"backend": {"torch": "jax"},
+                   "sort_impl": {"torch": "lax", "kernel": "pallas"}}
+
 
 @dataclass(frozen=True)
 class SAOptions:
@@ -118,13 +125,19 @@ class SAOptions:
         excludes runtime objects (mesh, counters/stats sinks),
         execution-only knobs (cache, validate) and serving-layer
         segmentation knobs (segment_docs, compact_fanin). Callable
-        schedules fingerprint by name.
+        schedules fingerprint by name. Backend and sort_impl are spelled
+        in the JAX package's names (`REFERENCE_NAMES`), so a plan and its
+        counterpart there share one fingerprint and the persisted indexes
+        of the two packages (`repro_torch.api.store`) share one identity.
         """
         sched = (self.schedule if isinstance(self.schedule, str)
                  else f"callable:{getattr(self.schedule, '__name__', 'anon')}")
-        return (f"plan-v2|backend={self.backend}|v0={self.v0}"
+        backend, sort_impl = (
+            REFERENCE_NAMES[field].get(value, value) for field, value in
+            (("backend", self.backend), ("sort_impl", self.sort_impl)))
+        return (f"plan-v2|backend={backend}|v0={self.v0}"
                 f"|schedule={sched}|base={self.base_threshold}"
-                f"|sort={self.sort_impl}|pack={int(self.pack_keys)}"
+                f"|sort={sort_impl}|pack={int(self.pack_keys)}"
                 f"|rate={self.sample_rate}")
 
     def replace(self, **changes) -> "SAOptions":

@@ -4,19 +4,75 @@
   (`int[B_pad, L_pad]` + per-row lengths), with both axes quantised onto a
   power-of-two grid.
 * `stage_batch` starts the host→device copy of a batch from pinned memory
-  (`non_blocking`), so it can ride under work already queued on the card.
+  on a side CUDA stream and records an event behind it, so the copy of
+  the next batch rides under the search of the current one (the serving
+  tier's double buffer, `repro_torch.serve.SAServer`).
 * `batch_ranges` runs the **vectorised double binary search**
   (`_ranges_kernel`): all B patterns advance their (lower, upper) SA
   bounds in lock-step; every step is one `[B, 2, L]` gather of text
   windows and one masked prefix comparison. Results come back as numpy
   int64 arrays, the layout of the JAX package's query engine.
+* `QuerySession` is the closed-loop serving facade: it chops a pattern
+  stream into ticks of at most `batch_size`, runs each tick as one batch
+  and keeps per-tick latency records (`latency_summary()`: p50/p95/p99
+  and qps); `submit` starts an `SAServer` for open-loop traffic.
+
+`query_cache_stats()` counts the shapes the dense and sparse searches
+have run at, hits and misses, the way `builder_cache_stats()` counts
+builds. There is no compile behind a shape here, unlike the JAX
+package's jit cache: a shape is the (B_pad, L_pad, dtype) of the search's
+windows, whatever the index, and a miss is the first batch at a shape,
+the one that fills the caching allocator's pools. The JAX package's
+`trace_events` (a count of jax traces) has no counterpart.
 """
 from __future__ import annotations
 
+import threading
+import time
 import weakref
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
+
+#: (search, B_pad, L_pad, pattern dtype) shapes the searches have run at
+#: (a bounded set: both pads are powers of two) and the misses, written
+#: under the lock, which a hit never takes. Hits are counted per thread
+#: (the serving tier's device thread and callers' threads search
+#: concurrently), so each count has one writer.
+_SEEN_BUCKETS: set[tuple] = set()
+_MISSES = [0]
+_HITS: dict[int, int] = {}
+_CACHE_LOCK = threading.Lock()
+
+
+def query_cache_stats() -> dict:
+    """Snapshot of the query-shape accounting: buckets / hits / misses."""
+    with _CACHE_LOCK:
+        return {"buckets": len(_SEEN_BUCKETS),
+                "hits": sum(list(_HITS.values())), "misses": _MISSES[0]}
+
+
+def clear_query_cache() -> None:
+    """Reset the bucket bookkeeping and the hit/miss counters."""
+    with _CACHE_LOCK:
+        _SEEN_BUCKETS.clear()
+        _HITS.clear()
+        _MISSES[0] = 0
+
+
+def note_shape(search: str, batch: "QueryBatch") -> None:
+    """Count one search of `batch`'s shape as a hit or a miss."""
+    key = (search, *batch.bucket, np.dtype(batch.pats.dtype).str)
+    if key not in _SEEN_BUCKETS:
+        with _CACHE_LOCK:
+            if key not in _SEEN_BUCKETS:
+                _MISSES[0] += 1
+                _SEEN_BUCKETS.add(key)
+                return
+    tid = threading.get_ident()
+    _HITS[tid] = _HITS.get(tid, 0) + 1
+
 
 #: pattern-length buckets never go below this (tiny patterns share shapes).
 _MIN_LEN_BUCKET = 8
@@ -144,21 +200,81 @@ def _ranges_kernel(text: torch.Tensor, sa: torch.Tensor, pats: torch.Tensor,
     return lo[:, 0], lo[:, 1]
 
 
-def stage_batch(index, batch: QueryBatch):
-    """Begin the host→device copy of a batch's buffers: pinned host memory,
-    `non_blocking` copies on the current stream. Returns the staged
-    (pats, lens) tensors for `batch_ranges(..., staged=)`."""
+class StagedBatch(NamedTuple):
+    """A batch's buffers on the index's device, and the event recorded on
+    the copy stream behind their copies (None off the card)."""
+
+    pats: torch.Tensor
+    lens: torch.Tensor
+    ready: Optional[torch.cuda.Event]
+
+
+#: `stage_batch`'s copy stream of each card, made on its first use.
+_COPY_STREAMS: dict[int, torch.cuda.Stream] = {}
+
+
+def _copy_stream(dev: torch.device) -> torch.cuda.Stream:
+    key = dev.index if dev.index is not None else torch.cuda.current_device()
+    stream = _COPY_STREAMS.get(key)
+    if stream is None:
+        # setdefault is atomic: racing first calls share one stream
+        stream = _COPY_STREAMS.setdefault(key, torch.cuda.Stream(dev))
+    return stream
+
+
+def stage_batch(index, batch: QueryBatch) -> StagedBatch:
+    """Begin the host→device copy of a batch's buffers.
+
+    On the card the buffers are pinned and copied `non_blocking` on the
+    card's copy stream, with an event recorded behind the copies; the
+    caller's stream is not touched, so a copy started while a search is
+    queued there overlaps it. `batch_ranges(..., staged=)` makes its
+    stream wait on the event. Off the card the buffers are copied on
+    return."""
     batch.check_bound_to(index)
     dev = index.device
     pats = torch.from_numpy(batch.pats)
     lens = torch.from_numpy(batch.lens)
-    if dev.type == "cuda":
-        pats, lens = pats.pin_memory(), lens.pin_memory()
-    return (pats.to(dev, non_blocking=True), lens.to(dev, non_blocking=True))
+    if dev.type != "cuda":
+        return StagedBatch(pats.to(dev), lens.to(dev), None)
+    copy = _copy_stream(dev)
+    with torch.cuda.stream(copy):
+        pats_d = pats.pin_memory().to(dev, non_blocking=True)
+        lens_d = lens.pin_memory().to(dev, non_blocking=True)
+        ready = torch.cuda.Event()
+        ready.record(copy)
+    return StagedBatch(pats_d, lens_d, ready)
+
+
+def batch_buffers(index, batch: QueryBatch,
+                  staged: StagedBatch | None) -> tuple[torch.Tensor,
+                                                      torch.Tensor]:
+    """(pats, lens) on the index's device, ready for work queued on the
+    current stream.
+
+    Unstaged, they are copied on that stream. Staged, that stream waits
+    on the copy's event, and the buffers are marked as used by it, so the
+    caching allocator does not hand their memory out again before the
+    search that reads them has run."""
+    if staged is None:
+        dev = index.device
+        pats = torch.from_numpy(batch.pats)
+        lens = torch.from_numpy(batch.lens)
+        if dev.type == "cuda":
+            pats, lens = pats.pin_memory(), lens.pin_memory()
+        return (pats.to(dev, non_blocking=True),
+                lens.to(dev, non_blocking=True))
+    if staged.ready is not None:
+        stream = torch.cuda.current_stream(index.device)
+        stream.wait_event(staged.ready)
+        staged.pats.record_stream(stream)
+        staged.lens.record_stream(stream)
+    return staged.pats, staged.lens
 
 
 def batch_ranges(index, batch: QueryBatch, *,
-                 staged=None) -> tuple[np.ndarray, np.ndarray]:
+                 staged: StagedBatch | None = None
+                 ) -> tuple[np.ndarray, np.ndarray]:
     """Resolve every pattern in `batch` to its `[lo, hi)` SA-rank range.
 
     One vectorised search for the whole batch; returns two
@@ -172,8 +288,164 @@ def batch_ranges(index, batch: QueryBatch, *,
         z = np.zeros(k, np.int64)
         return z, z.copy()
     text_d, sa_d = index._device_state()
-    pats_d, lens_d = staged if staged is not None else stage_batch(index,
-                                                                   batch)
+    note_shape("dense", batch)
+    pats_d, lens_d = batch_buffers(index, batch, staged)
     lo, hi = _ranges_kernel(text_d, sa_d, pats_d, lens_d)
     both = torch.stack([lo[:k], hi[:k]]).cpu().numpy()
     return both[0], both[1]
+
+
+class QuerySession:
+    """Closed-loop serving facade: batched query ticks + latency accounting.
+
+    Wraps one `SuffixArrayIndex` (built, or restored from an `IndexStore`)
+    or a `repro_torch.api.SegmentedIndex` (whose `count_batch` fans each
+    tick across segments and merges; locate then yields global (doc,
+    offset) rows). An incoming sequence of patterns is chopped into ticks
+    of at most `batch_size`, each tick runs as one batch, and the wall
+    time of every tick, up to its results on the host, is recorded.
+    `latency_summary()` reports per-query p50/p95/p99 latency (a query's
+    latency is its tick's wall time) and the aggregate qps.
+    """
+
+    def __init__(self, index, *, batch_size: int = 64):
+        if batch_size < 1:
+            raise ValueError(f"batch_size must be ≥ 1, got {batch_size}")
+        self.index = index
+        self.batch_size = int(batch_size)
+        self._tick_us: list[float] = []     # wall µs per tick
+        self._tick_sizes: list[int] = []    # queries per tick
+        self._warmup_ticks = 0
+        self._server = None                 # lazy repro_torch.serve.SAServer
+
+    # ------------------------------------------------------------ serving
+    def _ticks(self, patterns):
+        pats = list(patterns)
+        for at in range(0, len(pats), self.batch_size):
+            yield pats[at:at + self.batch_size]
+
+    def _timed(self, fn, tick):
+        t0 = time.perf_counter()
+        out = fn(tick)
+        self._tick_us.append(1e6 * (time.perf_counter() - t0))
+        self._tick_sizes.append(len(tick))
+        return out
+
+    def warmup(self, pattern_lens=(8,)) -> int:
+        """Run one unrecorded tick of `batch_size` patterns per length in
+        `pattern_lens`.
+
+        There is no compile to pay here, but the first tick at a shape
+        fills the caching allocator's pools and the pinned host pool that
+        later ticks of that shape reuse. Warmed ticks are counted
+        (`latency_summary()["warmup_ticks"]`) but never enter the
+        percentile pool. Returns the tick count run."""
+        done = 0
+        for m in pattern_lens:
+            # floor by the index's minimum answerable length (a sparse
+            # index rejects shorter patterns)
+            m = max(int(m), 1,
+                    int(getattr(self.index, "min_pattern_len", 0)))
+            if self.index.n == 0 or self.index.sigma == 0:
+                continue        # nothing to search / no alphabet
+            # value 0 is always in-alphabet when sigma ≥ 1
+            self.index.count_batch([np.zeros(m, np.int64)] * self.batch_size)
+            self._warmup_ticks += 1
+            done += 1
+        return done
+
+    def count(self, patterns) -> np.ndarray:
+        """Occurrence counts for a stream of patterns — int64[len]."""
+        outs = [self._timed(self.index.count_batch, t)
+                for t in self._ticks(patterns)]
+        return (np.concatenate(outs) if outs else np.zeros(0, np.int64))
+
+    def contains(self, patterns) -> np.ndarray:
+        """Presence flags for a stream of patterns — bool[len]."""
+        return self.count(patterns) > 0
+
+    def locate(self, patterns) -> list:
+        """Sorted occurrence positions per pattern — list of int64 arrays."""
+        outs: list = []
+        for t in self._ticks(patterns):
+            outs.extend(self._timed(self.index.locate_batch, t))
+        return outs
+
+    # --------------------------------------------------------- accounting
+    @property
+    def queries_served(self) -> int:
+        return int(sum(self._tick_sizes))
+
+    def latency_summary(self) -> dict:
+        """Aggregate latency stats over every *recorded* tick so far.
+
+        Warmup ticks are excluded (only their count is reported). With no
+        recorded ticks the percentiles and qps are ``None`` (absent, not
+        zero)."""
+        if not self._tick_us:
+            return {"ticks": 0, "queries": 0,
+                    "warmup_ticks": self._warmup_ticks,
+                    "p50_us": None, "p95_us": None, "p99_us": None,
+                    "qps": None}
+        per_query = np.repeat(np.asarray(self._tick_us),
+                              np.asarray(self._tick_sizes))
+        p50, p95, p99 = np.percentile(per_query, [50, 95, 99])
+        total_s = float(np.sum(self._tick_us)) * 1e-6
+        return {
+            "ticks": len(self._tick_us),
+            "queries": self.queries_served,
+            "warmup_ticks": self._warmup_ticks,
+            "p50_us": float(p50),
+            "p95_us": float(p95),
+            "p99_us": float(p99),
+            "qps": self.queries_served / max(total_s, 1e-9),
+        }
+
+    def reset_latency(self) -> None:
+        self._tick_us.clear()
+        self._tick_sizes.clear()
+        self._warmup_ticks = 0
+
+    # ------------------------------------------------- non-blocking submit
+    def submit(self, pattern, **server_knobs):
+        """Submit ONE pattern without blocking; returns a future.
+
+        The first call starts a `repro_torch.serve.SAServer` over this
+        session's index (`max_batch=batch_size`; pass coalescing and
+        admission knobs as keyword arguments on that first call). The
+        future resolves to a `repro_torch.serve.Response` whose `.count`
+        is the occurrence count. Async traffic is accounted in
+        `server.metrics`, not in the tick stats. Call `close()` (or use
+        the session as a context manager) to drain and stop the loop.
+        """
+        if self._server is None:
+            from ..serve import SAServer
+            self._server = SAServer(self.index, max_batch=self.batch_size,
+                                    **server_knobs)
+            self._server.start()
+        elif server_knobs:
+            raise ValueError("server knobs only apply to the first submit "
+                             "(the serving loop is already running)")
+        return self._server.submit(pattern)
+
+    @property
+    def server(self):
+        """The lazily started `repro_torch.serve.SAServer`, or None."""
+        return self._server
+
+    def close(self) -> None:
+        """Drain and stop the async serving loop (no-op if never started)."""
+        if self._server is not None:
+            self._server.stop()
+            self._server = None
+
+    def __enter__(self) -> "QuerySession":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.close()
+
+    def __repr__(self) -> str:
+        return (f"QuerySession(index=n{self.index.n}, "
+                f"batch_size={self.batch_size}, "
+                f"served={self.queries_served})")

@@ -12,6 +12,8 @@ when they are encoded, before any device work.
 Operations that need the rank of every text position (`sa_ranges_batch`,
 `ngram_stats`, `duplicate_spans`, `cross_doc_duplicates`) raise
 `NotImplementedError` and point to the dense index, as in the reference.
+The serving protocol (`stage_encoded` / `ranges_staged`) answers with
+virtual ``(0, count)`` ranges.
 """
 from __future__ import annotations
 
@@ -135,16 +137,11 @@ class SparseSuffixArrayIndex(SuffixArrayIndex):
             raise PatternTooShortError(len(pat), self.sample_rate)
         return pat
 
-    def _counts_from_batch(self, batch: QueryBatch) -> np.ndarray:
-        lo, hi = sparse_ranges(self, batch)
+    def _counts_from_batch(self, batch: QueryBatch, *,
+                           staged=None) -> np.ndarray:
+        lo, hi = sparse_ranges(self, batch, staged=staged)
         counts, _ = verify_alignments(self, batch, lo, hi)
         return counts
-
-    def _positions_from_batch(self, batch: QueryBatch) -> list:
-        lo, hi = sparse_ranges(self, batch)
-        _, positions = verify_alignments(self, batch, lo, hi,
-                                         want_positions=True)
-        return positions
 
     def count_batch(self, patterns) -> np.ndarray:
         """Exact occurrence counts: one per-alignment search on the device
@@ -154,7 +151,11 @@ class SparseSuffixArrayIndex(SuffixArrayIndex):
     def locate_batch(self, patterns) -> list:
         """Sorted encoded start positions per pattern — equal to the dense
         index's `locate_batch` for patterns ≥ sample_rate."""
-        return self._positions_from_batch(self._as_batch(patterns))
+        qb = self._as_batch(patterns)
+        lo, hi = sparse_ranges(self, qb)
+        _, positions = verify_alignments(self, qb, lo, hi,
+                                         want_positions=True)
+        return positions
 
     def sa_ranges_batch(self, patterns):
         raise NotImplementedError(
@@ -162,28 +163,18 @@ class SparseSuffixArrayIndex(SuffixArrayIndex):
             "over all n suffixes do not exist at sample_rate > 1; use "
             "count_batch / locate_batch (exact), or a dense index")
 
-    # --------------------------------------------------- encoded fan-in API
-    def _counts_encoded(self, enc) -> np.ndarray:
-        """Counts for already-encoded patterns (`_encode_pattern` output),
-        the per-segment primitive of a segmented index."""
-        return self._counts_from_batch(QueryBatch.from_encoded(self, enc))
-
-    def _positions_encoded(self, enc) -> list:
-        """Sorted encoded positions per already-encoded pattern."""
-        return self._positions_from_batch(QueryBatch.from_encoded(self, enc))
-
     # ------------------------------------------------- serving-tier protocol
-    def stage_encoded(self, enc):
-        raise NotImplementedError(
-            "the serving-tier protocol (stage_encoded / ranges_staged) "
-            "comes with the serve + QuerySession slice (ROADMAP queue 1, "
-            "item 8)")
+    # stage_encoded is the dense index's: the same batch, staged the same way
 
-    def ranges_staged(self, work):
-        raise NotImplementedError(
-            "the serving-tier protocol (stage_encoded / ranges_staged) "
-            "comes with the serve + QuerySession slice (ROADMAP queue 1, "
-            "item 8)")
+    def ranges_staged(self, work) -> tuple[np.ndarray, np.ndarray]:
+        """Resolve a staged work item to **virtual** ``(0, count)`` ranges.
+
+        The serving tier reads ranges only as ``hi - lo`` widths; a sparse
+        index has no dense rank space to report, so it returns ``[0,
+        count)`` per pattern, whose widths are exact."""
+        batch, staged = work
+        counts = self._counts_from_batch(batch, staged=staged)
+        return np.zeros(len(counts), np.int64), counts
 
     # ---------------------------------------------------------- statistics
     def ngram_stats(self, k: int):

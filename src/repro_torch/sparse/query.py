@@ -25,7 +25,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..api.query import stage_batch
+from ..api.query import batch_buffers, note_shape
 
 #: most elements of one [B, s, 2, L] window a search step materialises.
 _MAX_WINDOW = 1 << 25
@@ -79,18 +79,21 @@ def _sparse_ranges_kernel(text: torch.Tensor, ssa: torch.Tensor,
     return lo[..., 0], lo[..., 1]
 
 
-def sparse_ranges(index, batch):
+def sparse_ranges(index, batch, *, staged=None):
     """Level 1 for a whole `QueryBatch`: per-alignment candidate ranges.
 
     Returns ``(lo, hi)`` int64[n_queries, s] numpy arrays, padding rows
-    sliced off. An empty index maps everything to empty ranges."""
+    sliced off. An empty index maps everything to empty ranges. Pass
+    ``staged`` (`repro_torch.api.query.stage_batch`) to run against
+    buffers whose copy was already started."""
     batch.check_bound_to(index)
     k, s = batch.n_queries, index.sample_rate
     if index.ns == 0 or k == 0:
         z = np.zeros((k, s), np.int64)
         return z, z.copy()
     text_d, sa_d = index._device_state()
-    pats_d, lens_d = stage_batch(index, batch)
+    note_shape("sparse", batch)
+    pats_d, lens_d = batch_buffers(index, batch, staged)
     B, L = pats_d.shape
     chunk = max(1, min(B, _MAX_WINDOW // (s * 2 * L)))
     parts = [_sparse_ranges_kernel(text_d, sa_d, pats_d[i:i + chunk],

@@ -284,3 +284,90 @@ def test_small_radix_and_sparse_builds_match_cpu(cuda):
                                   cpu.count_batch(pats))
     for a, b in zip(sparse.locate_batch(pats), cpu.locate_batch(pats)):
         np.testing.assert_array_equal(a, b)
+
+
+# ------------------------------------------------------- serving on the card
+def _serving_corpus():
+    rng = np.random.default_rng(15)
+    docs = [rng.integers(0, 8, int(rng.integers(500, 3000)))
+            for _ in range(6)]
+    pats = [d[a:a + m] for d in docs for a, m in ((7, 16), (100, 40))]
+    pats += [rng.integers(0, 8, m) for m in (16, 20, 64, 200)]
+    return docs, pats
+
+
+@pytest.mark.parametrize("rate", [1, 8])
+def test_side_stream_staging_matches_unstaged(cuda, rate):
+    from repro_torch.api import QueryBatch, batch_ranges, stage_batch
+    docs, pats = _serving_corpus()
+    idx = SuffixArrayIndex.from_docs(docs, SAOptions(sample_rate=rate),
+                                     device=cuda)
+    cpu = SuffixArrayIndex.from_docs(docs, device="cpu")
+    want = cpu.count_batch(pats)
+    # stage several batches ahead of the searches, as the server's
+    # coalesce thread does, then resolve them in order
+    chunks = [pats[i:i + 5] for i in range(0, len(pats), 5)]
+    works = [idx.stage_encoded([idx._encode_pattern(p) for p in c])
+             for c in chunks]
+    for _, staged in works:
+        assert isinstance(staged.ready, torch.cuda.Event)
+        assert staged.pats.device.type == "cuda"
+    got = np.concatenate([np.subtract(*idx.ranges_staged(w)[::-1])
+                          for w in works])
+    np.testing.assert_array_equal(got, want)
+    if rate == 1:
+        qb = QueryBatch.encode(idx, pats)
+        for a, b, c in zip(batch_ranges(idx, qb, staged=stage_batch(idx, qb)),
+                           batch_ranges(idx, qb), cpu.sa_ranges_batch(pats)):
+            np.testing.assert_array_equal(a, b)
+            np.testing.assert_array_equal(a, c)
+
+
+@pytest.mark.parametrize("kind", ["dense", "sparse", "segmented"])
+def test_sa_server_on_the_card_equals_count_batch(cuda, kind):
+    from repro_torch.api import SegmentedIndex
+    from repro_torch.serve import SAServer
+    docs, pats = _serving_corpus()
+    if kind == "segmented":
+        idx = SegmentedIndex.from_docs(docs, segment_docs=2, device=cuda)
+    else:
+        idx = SuffixArrayIndex.from_docs(
+            docs, SAOptions(sample_rate=8 if kind == "sparse" else 1),
+            device=cuda)
+    want = SuffixArrayIndex.from_docs(docs, device="cpu").count_batch(
+        pats * 4)
+    with SAServer(idx, max_batch=8, coalesce_max_wait_us=300.0) as srv:
+        srv.warmup(pattern_lens=(16, 64, 256))
+        futs = [srv.submit(p) for p in pats * 4]
+        got = [f.result(timeout=120.0) for f in futs]
+    assert all(r.ok for r in got)
+    np.testing.assert_array_equal([r.count for r in got], want)
+    np.testing.assert_array_equal(idx.count_batch(pats * 4), want)
+
+
+def test_store_round_trip_to_and_from_the_card(cuda, tmp_path):
+    from repro_torch.api import IndexStore
+    docs, pats = _serving_corpus()
+    built = SuffixArrayIndex.from_docs(docs, device=cuda)
+    _ = built.lcp
+    store = IndexStore(str(tmp_path), device=cuda)
+    store.save("card", built)
+    got = store.load("card", options=SAOptions())
+    assert got.sa.device.type == "cuda" and got.text.device.type == "cuda"
+    assert torch.equal(got.sa, built.sa) and torch.equal(got.text,
+                                                         built.text)
+    np.testing.assert_array_equal(got.lcp, built.lcp)
+    on_cpu = IndexStore(str(tmp_path), device="cpu").load("card")
+    assert torch.equal(on_cpu.sa, built.sa.cpu())
+    IndexStore(str(tmp_path), device="cpu").save("host", on_cpu)
+    back = store.load("host")
+    assert back.sa.device.type == "cuda" and torch.equal(back.sa, built.sa)
+    np.testing.assert_array_equal(back.count_batch(pats),
+                                  on_cpu.count_batch(pats))
+    sparse = SuffixArrayIndex.from_docs(docs, SAOptions(sample_rate=8),
+                                        device=cuda)
+    store.save("sparse", sparse)
+    again = store.load("sparse", options=SAOptions(sample_rate=8))
+    assert torch.equal(again.sa, sparse.sa)
+    np.testing.assert_array_equal(again.count_batch(pats),
+                                  on_cpu.count_batch(pats))

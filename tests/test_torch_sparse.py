@@ -242,13 +242,32 @@ def test_pattern_too_short_is_typed():
 
 @pytest.mark.parametrize("method,arg", [
     ("sa_ranges_batch", [[0, 1, 2, 3]]), ("ngram_stats", 3),
-    ("duplicate_spans", 8), ("cross_doc_duplicates", 8),
-    ("stage_encoded", []), ("ranges_staged", None)])
+    ("duplicate_spans", 8), ("cross_doc_duplicates", 8)])
 def test_dense_only_operations_raise(method, arg):
     idx = SuffixArrayIndex.build(np.arange(64) % 5,
                                  SAOptions(sample_rate=RATE), device="cpu")
     with pytest.raises(NotImplementedError):
         getattr(idx, method)(arg)
+
+
+@pytest.mark.parametrize("seed", [0, 3])
+def test_sparse_staged_path_matches_count_batch(seed):
+    """The serving protocol: `stage_encoded` then `ranges_staged` gives
+    virtual (0, count) ranges whose widths equal the dense index's and
+    the JAX package's counts."""
+    docs = _docs(seed)
+    idx = SuffixArrayIndex.from_docs(docs, SAOptions(sample_rate=RATE),
+                                     device="cpu")
+    ref = japi.SuffixArrayIndex.from_docs(docs,
+                                          japi.SAOptions(sample_rate=RATE))
+    pats = _patterns(docs, np.random.default_rng([SEED, seed]), k=30)
+    enc = [idx._encode_pattern(p) for p in pats]
+    lo, hi = idx.ranges_staged(idx.stage_encoded(enc))
+    assert (lo == 0).all()
+    np.testing.assert_array_equal(hi, idx.count_batch(pats))
+    np.testing.assert_array_equal(hi, ref.ranges_staged(
+        ref.stage_encoded([ref._encode_pattern(p) for p in pats]))[1])
+    assert idx.ranges_staged(idx.stage_encoded([]))[1].shape == (0,)
 
 
 # ------------------------------------------------- dense longest_match
