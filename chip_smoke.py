@@ -25,9 +25,11 @@ Phases (any failure exits non-zero; no phase's exception is caught):
    (sigma = 256, 14,667,776 encoded tokens; about 10% of the documents copy
    a 512-byte passage of another one) goes through
    `SuffixArrayIndex.from_docs` on the card with ``sort_impl="auto"``
-   (= "kernel") and, path (A), with ``sort_impl="radix"``. Each build must
-   have launched exactly its path's kernels; the SA must pass an O(n) check
-   and every impl ("kernel", "radix", "torch") must give the same SA.
+   (= "radix" on a CUDA device) and with an explicit ``sort_impl="kernel"``
+   (the bitonic sort and `seg_boundary`). Each build must have launched
+   exactly its path's kernels; the SA must pass an O(n) check and every
+   impl ("kernel", "radix", "torch") must give the same SA. Then five warm
+   builds of the default plan, timed (``builds_s["default"]``).
 4. Queries: 4,096 patterns of 32-512 tokens, half planted, through
    `count_batch` and `locate_batch`; every planted pattern hits, and 16
    counts equal a direct scan of the text on the card.
@@ -69,6 +71,21 @@ Phases (any failure exits non-zero; no phase's exception is caught):
    over the same documents), then `python -m repro_torch.launch.serve
    --arch suffix-array --smoke`. Each build launches exactly its path's
    kernels and serving launches none.
+9. Data plane, every index on the card: `TrainingDataPlane` (dedup, the
+   "reject" gate, compaction every 4 shards) streams 256 documents of
+   4,096 chars in 8 shards (2^20 chars, 30% duplicated) against 32 eval
+   documents, 8 of them carrying a copy of a training passage. The kept
+   bytes must equal the monolithic `dedup_docs` and a host oracle (a set
+   of seen 48-grams, no suffix array); each shard is one build plus its
+   merges, and every segment build launches exactly the radix kernels;
+   `batch_at(k)` for k = 0 .. 15 is deterministic; the gate's hits and
+   masks on 64 windows equal a host set of the eval 48-grams; `probe()` of
+   8 samples equals the same metrics over a monolithic index of the raw
+   documents. Prints a `{"data_plane": ...}` line: chars/s of the stream
+   and of `dedup_docs`, each shard's time by stage, the gate's windows/s,
+   the probe's ms a sample, one traced shard ingest (``with_setup_s``: its
+   side plane's earlier shards and the profiler's own processing too) and
+   the phase's own wall time (``phase_s``).
 
 Standard output ends with a JSON line of per-kernel numbers, the card's
 name and power limit, and ``{"ok": true, "device": {...}}``.
@@ -97,6 +114,8 @@ N_SCANNED = 16
 SEED = 20261017
 SPARSE_RATE = 16
 N_LONGEST = 4
+#: phase 3: warm builds of the default plan (``SAOptions()``), timed apart.
+DEFAULT_WARM_BUILDS = 5
 
 #: phase 8: the open-loop server's knobs (the reference defaults but for
 #: max_batch) and the entry point's corpus (default SAConfig: 2^20 chars).
@@ -110,12 +129,32 @@ SERVE_QUERIES = 2048
 SERVE_SEGMENTS = 8
 SERVE_INGEST = 4
 
+#: phase 9: the data plane at the default SAConfig's corpus size (2^20
+#: chars), in the generator and duplicate rate of
+#: benchmarks/data_plane_bench.py: 256 documents of 4,096 chars, 32 a shard
+#: (8 shards); 32 eval documents, 8 of them carrying a PASSAGE-char copy of
+#: a training document; the reference's batch shape.
+DP_CHARS = 1 << 20
+DP_SHARD_DOCS = 32
+DP_DOC_LEN = 4096
+DP_DUP = 0.3
+DP_SEED = 11
+DP_EVAL_DOCS = 32
+DP_PLANTED = 8
+DP_SEQ_LEN = 512
+DP_BATCH = 8
+DP_STEPS = 16
+DP_WINDOWS = 64
+DP_PROBES = 8
+DP_PROBE_LEN = 256
+DP_TRACED_SHARD = 2
+
 #: kernels each path must launch, and no others.
 PATH_KERNELS = {"kernel": {"bitonic_tile", "bitonic_cross", "seg_boundary"},
                 "radix": {"radix_hist", "radix_scatter"},
                 "sparse": {"radix_hist", "radix_scatter"}}
 #: every kernel the builds of phase 8 must launch between them.
-SERVING_KERNELS = PATH_KERNELS["kernel"] | PATH_KERNELS["sparse"]
+SERVING_KERNELS = PATH_KERNELS["radix"] | PATH_KERNELS["sparse"]
 
 #: the key loader's sweep in phase 2: shifts, lengths (below one block,
 #: whole and ragged blocks), blocks.
@@ -468,34 +507,36 @@ def check_suffix_array(text, sa) -> None:
 def main_path(dev, docs):
     import torch
     from repro_torch.api import SAOptions, SuffixArrayIndex, build_suffix_array
+    from repro_torch.core.compat import resolve_sort_impl
     from repro_torch.kernels import ops
     zero_launches()
     sync(dev)
     t0 = time.perf_counter()
     idx = SuffixArrayIndex.from_docs(docs, SAOptions(), device=dev)
     sync(dev)
-    t_kernel = time.perf_counter() - t0
+    t_radix = time.perf_counter() - t0
     launches = dict(ops.LAUNCHES)
     log(f"main path: from_docs n={idx.n} docs={idx.n_docs} "
-        f"sort_impl=auto(kernel) build_s={t_kernel:.3f} launches={launches}")
-    launched(dev, "kernel", launches)
+        f"sort_impl=auto({resolve_sort_impl('auto', dev)}) "
+        f"build_s={t_radix:.3f} launches={launches}")
+    launched(dev, "radix", launches)
     check_suffix_array(idx.text, idx.sa)
 
-    # path (A): the same corpus on the radix window sort
+    # the explicit "kernel" path: the bitonic sort and seg_boundary
     zero_launches()
     sync(dev)
     t0 = time.perf_counter()
-    rdx = SuffixArrayIndex.from_docs(docs, SAOptions(sort_impl="radix"),
+    krn = SuffixArrayIndex.from_docs(docs, SAOptions(sort_impl="kernel"),
                                      device=dev)
     sync(dev)
-    t_radix = time.perf_counter() - t0
-    radix_launches = dict(ops.LAUNCHES)
-    log(f"path (A): from_docs sort_impl=radix build_s={t_radix:.3f} "
-        f"launches={radix_launches}")
-    launched(dev, "radix", radix_launches)
-    assert torch.equal(rdx.sa, idx.sa), "sort_impl=radix SA differs"
-    for key in ("radix_hist", "radix_scatter"):
-        launches[key] = radix_launches[key]
+    t_kernel = time.perf_counter() - t0
+    kernel_launches = dict(ops.LAUNCHES)
+    log(f"main path: from_docs sort_impl=kernel build_s={t_kernel:.3f} "
+        f"launches={kernel_launches}")
+    launched(dev, "kernel", kernel_launches)
+    assert torch.equal(krn.sa, idx.sa), "sort_impl=kernel SA differs"
+    for key in PATH_KERNELS["kernel"]:
+        launches[key] = kernel_launches[key]
 
     builds = {"kernel": [t_kernel], "radix": [t_radix], "torch": []}
     for impl in ("torch", "radix", "kernel", "kernel", "radix", "torch"):
@@ -506,6 +547,16 @@ def main_path(dev, docs):
         sync(dev)
         builds[impl].append(time.perf_counter() - t0)
         assert torch.equal(sa, idx.sa), f"sort_impl={impl} SA differs"
+    # the default plan, warm: the number to hold against another commit's
+    # phase 3 (its "kernel" builds, where "auto" resolved to "kernel")
+    builds["default"] = []
+    for _ in range(DEFAULT_WARM_BUILDS):
+        sync(dev)
+        t0 = time.perf_counter()
+        sa = build_suffix_array(idx.text, SAOptions(), device=dev)
+        sync(dev)
+        builds["default"].append(time.perf_counter() - t0)
+        assert torch.equal(sa, idx.sa), "default build's SA differs"
     log(f"main path: SA passes the O(n) check; kernel, radix and torch "
         f"builds agree; build_s {json.dumps(builds)}")
     return idx, launches, builds
@@ -935,6 +986,14 @@ def kernel_times(dev, levels, launches, bandwidth: float):
     want = ref.radix_scatter_ref(keys, payload, 0, offsets, block)
     scat_err = max(require_equal("radix_scatter level 0", g, w)
                    for g, w in zip(got, want))
+
+    def library_pass():
+        order = torch.sort(keys & 255, stable=True).indices
+        return keys[order], payload[order]
+
+    for g, w in zip(got, library_pass()):
+        require_equal("radix_scatter level 0 (stable torch.sort pass)", g, w)
+    lib_scat_ms = time_ms(library_pass, dev, reps=10)
     scat_bytes = 2 * n_v * (8 + 4) + offsets.numel() * 4
     # the same kernel at the previous block of 1,024 elements
     off_1024 = scan_offsets(pass_digits(keys, 0, 1024), n_v, 1024)
@@ -1000,7 +1059,10 @@ def kernel_times(dev, levels, launches, bandwidth: float):
                      f"with an int32 payload, blocks of {block}",
          "ms": scat_ms, "plain_ms": plain_scat_ms,
          "bound_ms": 1e3 * scat_bytes / bandwidth, "bound_by": "bytes",
-         "library_ms": None, "block_1024_ms": scat_1024_ms},
+         "library_ms": lib_scat_ms,
+         "library_call": "torch.sort(keys & 255, stable=True) and the "
+                         "gather of keys and payload by its indices",
+         "block_1024_ms": scat_1024_ms},
         {"name": "radix_argsort", "route": "cuda",
          "source": "src/repro_torch/kernels/ref.py (lsd_argsort) on "
                    + src + "radix_hist.cu + radix_scatter.cu",
@@ -1056,7 +1118,7 @@ def traces(dev, text) -> None:
     `text` under the profiler, one JSON line each."""
     from repro_torch.api import SAOptions, build_suffix_array
     from repro_torch.sparse import build_sparse_suffix_array
-    for impl in ("auto", "radix"):
+    for impl in ("kernel", "radix"):
         log(json.dumps({"trace": trace_build(
             dev, impl, lambda impl=impl: build_suffix_array(
                 text, SAOptions(sort_impl=impl), device=dev))}))
@@ -1187,7 +1249,7 @@ def store_round_trip(dev, idx, sp, docs, total: dict, root: str) -> dict:
     out = {"fingerprint_s": time.perf_counter() - t0,
            "text_bytes": text.nbytes}
     for name, opts, path, want in (
-            ("dense", SAOptions(), "kernel", idx),
+            ("dense", SAOptions(), "radix", idx),
             ("sparse", SAOptions(sample_rate=SPARSE_RATE), "sparse", sp)):
         built_s = []
 
@@ -1257,7 +1319,7 @@ def entry_point(dev, total: dict, root: str, n_docs: int = SERVE_DOCS,
                 "mean_batch": run.metrics["batch_size"]["mean"]}
 
     mono_dir = os.path.join(root, "mono")
-    cold = counted(dev, "kernel", lambda: serve_sa_queries(
+    cold = counted(dev, "radix", lambda: serve_sa_queries(
         cfg, store_dir=mono_dir, **kw), total)
     assert cold.store_status == "miss", cold.store_status
     before = builder_cache_stats()
@@ -1266,14 +1328,14 @@ def entry_point(dev, total: dict, root: str, n_docs: int = SERVE_DOCS,
     assert warm.store_status == "hit", warm.store_status
     assert builder_cache_stats() == before, "a warm restart built"
     assert torch.equal(warm.index.sa, cold.index.sa)
-    seg = counted(dev, "kernel", lambda: serve_sa_queries(
+    seg = counted(dev, "radix", lambda: serve_sa_queries(
         cfg, store_dir=os.path.join(root, "segmented"),
         segments=SERVE_SEGMENTS, ingest=SERVE_INGEST, **kw), total)
     ing = seg.ingest
     assert ing["docs"] == SERVE_INGEST and \
         ing["builds"] == SERVE_INGEST + ing["merges"], ing
     sidx = seg.index
-    mono = counted(dev, "kernel", lambda: SuffixArrayIndex.from_docs(
+    mono = counted(dev, "radix", lambda: SuffixArrayIndex.from_docs(
         [sidx.doc(i) for i in sidx.doc_ids], cfg.to_options(), sigma=256,
         device=dev), total)
     assert mono.n == sidx.n
@@ -1320,6 +1382,282 @@ def serving(dev, idx, sp, docs, pats, counts) -> dict:
     return out
 
 
+# --------------------------------------------------------------- phase 9
+def host_kept(docs, g: int):
+    """Independent oracle of the gram drop rule, no suffix array: a set of
+    every g-gram's bytes seen so far in global order flags a position
+    whose gram was seen before; the flags are painted over [p, p + g)."""
+    import numpy as np
+    seen, out = set(), []
+    for d in docs:
+        d = np.asarray(d)
+        raw = d.astype(np.uint8).tobytes()
+        flags = np.zeros(max(len(d) - g + 1, 0), np.int64)
+        for p in range(len(flags)):
+            key = raw[p:p + g]
+            if key in seen:
+                flags[p] = 1
+            else:
+                seen.add(key)
+        drop = (np.convolve(flags, np.ones(g, np.int64))[:len(d)] > 0
+                if len(flags) else np.zeros(len(d), bool))
+        out.append(d[~drop])
+    return out
+
+
+def host_gate(eval_docs, windows, g: int):
+    """(hits, contaminated) of `windows` against a host set of every eval
+    g-gram: the gate's answer without an index."""
+    import numpy as np
+    grams = {bytes(e[p:p + g].astype(np.uint8))
+             for e in eval_docs for p in range(len(e) - g + 1)}
+    hits = np.zeros(len(windows), np.int64)
+    mask = np.zeros(windows.shape, bool)
+    for w, win in enumerate(windows):
+        raw = win.astype(np.uint8).tobytes()
+        for p in range(len(win) - g + 1):
+            if raw[p:p + g] in grams:
+                hits[w] += 1
+                mask[w, p:p + g] = True
+    return hits, mask
+
+
+def data_plane_corpus(n_chars: int, n_eval: int):
+    """Phase 9's shards (the generator and duplicate rate of
+    benchmarks/data_plane_bench.py) and its eval documents, DP_PLANTED of
+    them carrying a PASSAGE-char copy of a training document; returns
+    (shards, docs, eval_docs, planted (doc, offset) pairs)."""
+    import numpy as np
+    from repro_torch.data.pipeline import (synthetic_corpus,
+                                           synthetic_doc_shards)
+    shards = synthetic_doc_shards(n_chars, SIGMA, shard_docs=DP_SHARD_DOCS,
+                                  doc_len=DP_DOC_LEN, dup_fraction=DP_DUP,
+                                  seed=DP_SEED)
+    docs = [d for s in shards for d in s]
+    ev = synthetic_corpus(n_eval * DP_DOC_LEN, SIGMA, seed=SEED + 9)
+    eval_docs = [ev[i * DP_DOC_LEN:(i + 1) * DP_DOC_LEN].copy()
+                 for i in range(n_eval)]
+    rng = np.random.default_rng(SEED + 9)
+    planted = []
+    for e in rng.choice(n_eval, DP_PLANTED, replace=False):
+        d = int(rng.integers(len(docs)))
+        a, b = (int(v) for v in rng.integers(0, DP_DOC_LEN - PASSAGE, 2))
+        eval_docs[e][b:b + PASSAGE] = docs[d][a:a + PASSAGE]
+        planted.append((d, a))
+    return shards, docs, eval_docs, planted
+
+
+def stream_shards(dev, plane, shards, total: dict) -> list[dict]:
+    """Ingest `shards` into `plane`, one at a time, with each stage's wall
+    time read by wrappers around the plane's own calls: the prior-shard
+    `_prior_flags` (its `contains_batch` calls apart, the rest is the gram
+    `np.unique` and its bookkeeping), the segment builds (each must have
+    launched exactly the radix path's kernels), the Kasai LCP, the
+    compaction, and what is left of `process_shard` (the within-shard
+    flags, the drop mask and the host copy of the segment's text and SA).
+    """
+    from repro_torch.api import index as index_mod
+    from repro_torch.api import segments as seg_mod
+    from repro_torch.data import pipeline
+    from repro_torch.kernels import ops
+    rec: dict = {}
+
+    def timed(key, fn):
+        def wrapper(*args, **kw):
+            t0 = time.perf_counter()
+            out = fn(*args, **kw)
+            sync(dev)
+            rec.setdefault(key, []).append(time.perf_counter() - t0)
+            return out
+        return wrapper
+
+    new_segment = seg_mod.SegmentedIndex._new_segment
+
+    def build(self, *args, **kw):
+        zero_launches()
+        out = timed("builds", new_segment)(self, *args, **kw)
+        launches = dict(ops.LAUNCHES)
+        launched(dev, "radix", launches)
+        for key, n in launches.items():
+            total[key] = total.get(key, 0) + n
+        return out
+
+    contains = seg_mod.SegmentedIndex.contains_batch
+
+    def contains_batch(self, patterns):
+        rec.setdefault("fan_out", []).append(self.n_segments)
+        return timed("contains", contains)(self, patterns)
+
+    compact = seg_mod.SegmentedIndex.compact
+
+    def compact_counted(self):
+        merges = timed("compact", compact)(self)
+        rec.setdefault("merges", []).append(merges)
+        return merges
+
+    out = []
+    with mock.patch.object(seg_mod.SegmentedIndex, "_new_segment", build), \
+            mock.patch.object(seg_mod.SegmentedIndex, "contains_batch",
+                              contains_batch), \
+            mock.patch.object(seg_mod.SegmentedIndex, "compact",
+                              compact_counted), \
+            mock.patch.object(index_mod, "lcp_kasai",
+                              timed("lcp", index_mod.lcp_kasai)), \
+            mock.patch.object(pipeline.StreamingDedup, "_prior_flags",
+                              timed("prior", pipeline.StreamingDedup
+                                    ._prior_flags)), \
+            mock.patch.object(pipeline.StreamingDedup, "process_shard",
+                              timed("process", pipeline.StreamingDedup
+                                    .process_shard)):
+        for shard in shards:
+            rec.clear()
+            t0 = time.perf_counter()
+            st = plane.ingest_shard(shard)
+            sync(dev)
+            wall = time.perf_counter() - t0
+            merges = sum(rec.get("merges", [0]))
+            assert st.builds == 1 + merges == len(rec["builds"]), \
+                (st, rec.get("builds"), merges)
+            contains_s = sum(rec.get("contains", []))
+            build_s = rec["builds"][0]
+            lcp_s = sum(rec.get("lcp", []))
+            prior_s = rec["prior"][0]
+            out.append({
+                "docs": st.docs, "chars": st.chars,
+                "dropped_chars": st.dropped_chars,
+                "prior_hits": st.prior_hits,
+                "within_hits": st.within_hits,
+                "unique_grams": st.unique_grams, "builds": st.builds,
+                "merges": merges, "wall_s": wall,
+                "gram_unique_s": prior_s - contains_s,
+                "prior_contains_s": contains_s,
+                "contains_calls": len(rec.get("contains", [])),
+                "segments_searched": max(rec.get("fan_out", [0])),
+                "segment_build_s": build_s, "lcp_s": lcp_s,
+                "flags_and_mask_s": rec["process"][0] - prior_s - build_s
+                - lcp_s,
+                "merge_s": sum(rec.get("compact", [])),
+                "merge_builds_s": sum(rec["builds"][1:])})
+    return out
+
+
+def data_plane(dev, n_chars: int = DP_CHARS, n_eval: int = DP_EVAL_DOCS
+               ) -> dict:
+    """Phase 9: the training data plane on the card; returns its record and
+    the kernel launches of its builds."""
+    import numpy as np
+    from repro_torch.api import SuffixArrayIndex
+    from repro_torch.data.pipeline import (MemorizationProbe, PipelineConfig,
+                                           TrainingDataPlane)
+    from repro_torch.text.dedup import DEDUP_MIN_LEN, dedup_docs
+    t_phase = time.perf_counter()
+    g = DEDUP_MIN_LEN
+    shards, docs, eval_docs, planted = data_plane_corpus(n_chars, n_eval)
+    cfg = PipelineConfig(dedup=True, vocab=SIGMA, seq_len=DP_SEQ_LEN,
+                         global_batch=DP_BATCH, compact_every=4, seed=SEED)
+    assert cfg.dedup_min_len == cfg.gate_min_len == g
+    total: dict = {}
+    plane = counted(dev, "radix", lambda: TrainingDataPlane(
+        cfg, eval_docs=eval_docs, device=dev), total)
+    assert plane.gate.index.sa.device == dev and plane.index.device == dev
+    n = sum(len(d) for d in docs)
+    t0 = time.perf_counter()
+    per_shard = stream_shards(dev, plane, shards, total)
+    stream_s = time.perf_counter() - t0
+    log(f"data plane: {len(shards)} shards, {len(docs)} docs, {n} chars "
+        f"streamed in {stream_s:.2f} s; builds "
+        f"{[s['builds'] for s in per_shard]}")
+
+    # checks 1 and 2: the stream equals the monolithic pass and the oracle
+    t0 = time.perf_counter()
+    mono, report = counted(dev, "radix", lambda: dedup_docs(
+        docs, g, sigma=SIGMA, device=dev), total)
+    mono_s = time.perf_counter() - t0
+    assert report.dropped_chars == plane.report.dropped_chars > 0
+    t0 = time.perf_counter()
+    oracle = host_kept(docs, g)
+    oracle_s = time.perf_counter() - t0
+    assert len(plane._kept) == len(mono) == len(oracle) == len(docs)
+    for i, (a, b, c) in enumerate(zip(plane._kept, mono, oracle)):
+        assert np.array_equal(a, b), f"doc {i}: stream != dedup_docs"
+        assert np.array_equal(a, c), f"doc {i}: stream != host oracle"
+
+    # check 5: deterministic gated batches; gate hits against a host set
+    gate = plane.gate
+    checked = gate.stats["checked_windows"]
+    t0 = time.perf_counter()
+    batches = [plane.batch_at(k) for k in range(DP_STEPS)]
+    gate_s = time.perf_counter() - t0
+    checked = gate.stats["checked_windows"] - checked
+    for k, b in enumerate(batches):
+        again = plane.batch_at(k)
+        assert sorted(b) == sorted(again) == ["loss_mask", "tokens"]
+        assert all(np.array_equal(b[key], again[key]) for key in b), k
+        assert b["tokens"].shape == (DP_BATCH, DP_SEQ_LEN + 1)
+    rng = np.random.default_rng(SEED + 10)
+    win = DP_SEQ_LEN + 1
+    starts = []
+    for d, a in planted:
+        for off in (-400, -100, 150, 400):
+            starts.append((d, int(np.clip(a + off, 0, DP_DOC_LEN - win))))
+    while len(starts) < DP_WINDOWS:
+        starts.append((int(rng.integers(len(docs))),
+                       int(rng.integers(0, DP_DOC_LEN - win + 1))))
+    windows = np.stack([docs[d][s:s + win] for d, s in starts])
+    hits, mask = gate.check(windows)
+    want_hits, want_mask = host_gate(eval_docs, windows, g)
+    assert np.array_equal(hits, want_hits), "gate hits != host set"
+    assert np.array_equal(mask, want_mask), "gate mask != host set"
+    assert (hits[:4 * len(planted)] > 0).all(), "a planted window missed"
+
+    # check 6: the probe against a monolithic index of the raw documents
+    mono_idx = counted(dev, "radix", lambda: SuffixArrayIndex.from_docs(
+        docs, sigma=SIGMA, device=dev), total)
+    copies = [k[100:100 + DP_PROBE_LEN + 64] for k in plane._kept
+              if len(k) == DP_DOC_LEN][:DP_PROBES // 2]
+    assert len(copies) == DP_PROBES // 2, "too few untouched documents"
+    samples = copies + [rng.integers(0, SIGMA, DP_PROBE_LEN)
+                        for _ in range(DP_PROBES - len(copies))]
+    t0 = time.perf_counter()
+    probe = plane.probe(samples)
+    probe_s = time.perf_counter() - t0
+    want = MemorizationProbe(mono_idx, min_len=g).run(samples)
+    assert probe == want, (probe, want)
+    assert probe["longest_copy_max"] >= DP_PROBE_LEN, probe
+    del mono_idx
+
+    # one shard's ingest under the profiler, in a plane of its own
+    t0 = time.perf_counter()
+    side = TrainingDataPlane(cfg, device=dev)
+    for shard in shards[:DP_TRACED_SHARD]:
+        side.ingest_shard(shard)
+    traced = trace_build(dev, f"ingest of shard {DP_TRACED_SHARD} "
+                         f"({side.index.n_segments} prior segments)",
+                         lambda: side.ingest_shard(shards[DP_TRACED_SHARD]))
+    assert all(np.array_equal(a, b) for a, b in zip(
+        side._kept, plane._kept)), "the traced plane's bytes differ"
+    del side
+    traced["with_setup_s"] = time.perf_counter() - t0
+    out = {"card": card_line() if dev.type == "cuda" else "cpu",
+           "shards": len(shards), "docs": len(docs), "chars": n,
+           "eval_docs": len(eval_docs), "planted": len(planted),
+           "stream_s": stream_s, "stream_chars_per_s": n / stream_s,
+           "monolithic_s": mono_s, "monolithic_chars_per_s": n / mono_s,
+           "host_oracle_s": oracle_s,
+           "dropped_chars": plane.report.dropped_chars,
+           "builds": plane.report.builds,
+           "merges": sum(s["merges"] for s in per_shard),
+           "per_shard": per_shard,
+           "gate": {"steps": DP_STEPS, "windows_checked": checked,
+                    "windows_per_s": checked / gate_s,
+                    "stats": plane.gate_stats(),
+                    "hits_of_64": int((hits > 0).sum())},
+           "probe": {**probe, "ms_per_sample": 1e3 * probe_s / len(samples)},
+           "trace": traced, "launches": total,
+           "phase_s": time.perf_counter() - t_phase}
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1357,6 +1695,8 @@ def main() -> int:
                     "bitonic_levels": per_level}))
     traces(dev, idx.text)
     served = serving(dev, idx, sp, docs, pats, counts)
+    plane = data_plane(dev)
+    log(json.dumps({"data_plane": plane}))
     for entry in table:
         names = ("bitonic_tile", "bitonic_cross") \
             if entry["name"] == "bitonic_sort" else \
@@ -1364,6 +1704,8 @@ def main() -> int:
             (entry["name"],)
         entry["launches_serving"] = sum(served["launches"].get(k, 0)
                                         for k in names)
+        entry["launches_data_plane"] = sum(plane["launches"].get(k, 0)
+                                           for k in names)
     print(json.dumps({"kernels": table}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -49,7 +49,7 @@ def _cached_builder(opts: SAOptions, device: torch.device,
     """(builder, fully-resolved plan) for this plan, device and bucketed
     length; the resolution is memoised."""
     backend = opts.resolve_backend()
-    impl = (resolve_sort_impl(opts.sort_impl) if backend == "torch"
+    impl = (resolve_sort_impl(opts.sort_impl, device) if backend == "torch"
             else opts.sort_impl)
     sched = (opts.schedule if isinstance(opts.schedule, str)
              else id(opts.schedule))

@@ -54,7 +54,8 @@ class SAOptions:
                     (`repro_torch.core.compat`): ``"kernel"`` the Hopper
                     kernels, ``"torch"`` stock `torch.sort`, ``"radix"``
                     the LSD radix sort on the histogram and scatter
-                    kernels, ``"auto"`` → ``"kernel"``.
+                    kernels, ``"auto"`` → ``"radix"`` on a CUDA device
+                    and ``"kernel"`` on the CPU.
     cache:          enable the builder cache and bucketed shape padding in
                     `repro_torch.api.build`.
     mesh, axis, pack_keys, counters:

@@ -2,7 +2,7 @@
 
 The port of `repro.configs`. The paper's own workload, ``suffix-array``
 (`SAConfig`), is ported; the language-model architectures of the JAX
-package are not yet (ROADMAP queue 1, item 10) and raise
+package are not yet (ROADMAP queue 1, item 2) and raise
 `NotImplementedError`.
 """
 from __future__ import annotations
@@ -41,7 +41,7 @@ def get_config(arch: str):
         raise NotImplementedError(
             f"--arch {arch}: the language-model stack (models, train, the "
             f"LM half of launch/serve) is not ported yet (ROADMAP queue 1, "
-            f"item 10)")
+            f"item 2)")
     raise ValueError(f"unknown --arch {arch!r}; expected suffix-array or "
                      f"one of {sorted(_ALIASES)}")
 

@@ -1,12 +1,12 @@
 """The paper's own workload: suffix-array construction and serving configs
 (corpus size, backend, v schedule, serving knobs).
 
-The port of `repro.configs.suffix_array`, with its construction and
-serving fields and their defaults; the training data plane's fields come
-with that plane's port. `SAConfig` is a thin, frozen launch-config
-wrapper; the
-executable plan is the `repro_torch.api.SAOptions` it produces via
-`to_options()`.
+The port of `repro.configs.suffix_array`, with its construction, serving
+and data-plane fields and their defaults. `SAConfig` is a thin, frozen
+launch-config wrapper; the executable plan is the
+`repro_torch.api.SAOptions` it produces via `to_options()`, and the data
+plane's `repro_torch.data.pipeline.PipelineConfig` comes from
+`to_pipeline()`.
 """
 from dataclasses import dataclass
 
@@ -54,14 +54,24 @@ class SAConfig:
                                 # (SAOptions.compact_fanin)
     gc_hygiene: bool = True     # SAServer GC regime: pin gen-2 thresholds
                                 # + freeze the index after warmup
+    # ---- training data plane (repro_torch.data.pipeline) ----
+    dedup_min_len: int = 48     # exact-substring dedup bar
+                                # (= repro_torch.text.dedup.DEDUP_MIN_LEN)
+    gate_min_len: int = 48      # train/eval contamination-gate gram length
+    gate_policy: str = "reject"  # "reject" | "mask"
+                                # (repro_torch.data.pipeline.GATE_POLICIES)
 
-    def to_pipeline(self):
-        """The data plane's `PipelineConfig`: not ported yet. Its knobs
-        (dedup and gate gram lengths, gate policy, shard size) join this
-        config with the code that reads them."""
-        raise NotImplementedError(
-            "the training data plane (data/pipeline, text/dedup) is not "
-            "ported yet (ROADMAP queue 1, items 4 and 9)")
+    def to_pipeline(self, *, seq_len: int = 512, global_batch: int = 8,
+                    dedup: bool = True, vocab=None, seed: int = 0):
+        """A `repro_torch.data.pipeline.PipelineConfig` carrying this
+        config's data-plane knobs (the SA plan rides along via
+        `to_options`)."""
+        from ..data.pipeline import PipelineConfig
+        return PipelineConfig(
+            seq_len=seq_len, global_batch=global_batch, dedup=dedup,
+            dedup_min_len=self.dedup_min_len, seed=seed,
+            options=self.to_options(), vocab=vocab,
+            gate_min_len=self.gate_min_len, gate_policy=self.gate_policy)
 
     def to_options(self, *, mesh=None, counters=None, stats=None):
         """The `repro_torch.api.SAOptions` plan this config describes.

@@ -17,7 +17,8 @@ the CPU unless the caller asks for it with ``device="cpu"``.
             counterpart of the JAX "radix"): an LSD radix sort on the
             hand-written histogram and scatter kernels, their plain
             versions on a CPU tensor.
-"auto"      resolves to "kernel" on every device.
+"auto"      resolves by device (`default_sort_impl`): "radix" on a CUDA
+            device, "kernel" on the CPU.
 ==========  ==============================================================
 
 "bitonic" is a name of the JAX package that the port has not taken over
@@ -57,12 +58,14 @@ def check_sort_impl(sort_impl: str) -> str:
     return sort_impl
 
 
-def default_sort_impl() -> str:
-    """What "auto" resolves to: "kernel", on every device."""
-    return "kernel"
+def default_sort_impl(device) -> str:
+    """What "auto" resolves to on `device`: "radix" on a CUDA device (the
+    LSD radix sort on the hand-written histogram and scatter kernels, the
+    fastest window sort of the three there), "kernel" on the CPU."""
+    return "radix" if torch.device(device).type == "cuda" else "kernel"
 
 
-def resolve_sort_impl(sort_impl: str) -> str:
-    """Validate `sort_impl` and resolve "auto"."""
+def resolve_sort_impl(sort_impl: str, device) -> str:
+    """Validate `sort_impl` and resolve "auto" for `device`."""
     check_sort_impl(sort_impl)
-    return default_sort_impl() if sort_impl == "auto" else sort_impl
+    return default_sort_impl(device) if sort_impl == "auto" else sort_impl

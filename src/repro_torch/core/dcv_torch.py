@@ -421,8 +421,8 @@ def suffix_array_torch(
 
     Returns int32[n] on `device`, a permutation of range(n).
     """
-    impl = resolve_sort_impl(sort_impl)
     dev = resolve_device(device)
+    impl = resolve_sort_impl(sort_impl, dev)
     if base_threshold is None:
         base_threshold = 256
     x = torch.as_tensor(x).to(device=dev, dtype=I64).reshape(-1)

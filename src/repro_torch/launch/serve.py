@@ -21,7 +21,7 @@ documents through `add_docs` after the build.
 The JAX package's mesh/BSP route (a 1-D mesh when several devices are
 visible) and its language-model half (``--arch <model>``: prefill and
 decode) have no counterpart yet; a model arch raises
-`NotImplementedError` (ROADMAP queue 1, item 10).
+`NotImplementedError` (ROADMAP queue 1, item 2).
 """
 from __future__ import annotations
 

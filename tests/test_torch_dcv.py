@@ -210,7 +210,9 @@ def test_options_validation_and_fingerprint():
         with pytest.raises(ValueError, match="sort_impl"):
             SAOptions(sort_impl=impl)
     assert SAOptions(sort_impl="radix").sort_impl == "radix"
-    assert resolve_sort_impl("auto") == "kernel"
+    assert resolve_sort_impl("auto", torch.device("cpu")) == "kernel"
+    assert resolve_sort_impl("auto", torch.device("cuda")) == "radix"
+    assert resolve_sort_impl("torch", torch.device("cuda")) == "torch"
     assert SAOptions(sample_rate=4).fingerprint().endswith("|rate=4")
     with pytest.raises(ValueError):
         SAOptions(sample_rate=0)

@@ -127,12 +127,21 @@ def test_small_build_goes_through_the_kernels(cuda):
     for key in ops.LAUNCHES:
         ops.LAUNCHES[key] = 0
     idx = SuffixArrayIndex.from_docs(docs, device=cuda)
-    # the "kernel" path's kernels launched (the shared-memory sort's two and
-    # seg_boundary), the one-stage kernel and the radix ones did not
+    # "auto" on the card is the radix path: its two kernels launched, the
+    # bitonic ones and seg_boundary did not
+    assert {k for k, v in ops.LAUNCHES.items() if v} == {
+        "radix_hist", "radix_scatter"}
+    for key in ops.LAUNCHES:
+        ops.LAUNCHES[key] = 0
+    kernel = SuffixArrayIndex.from_docs(docs, SAOptions(sort_impl="kernel"),
+                                        device=cuda)
+    # the explicit "kernel" path: the shared-memory sort's two kernels and
+    # seg_boundary launched, the one-stage kernel and the radix ones did not
     assert {k for k, v in ops.LAUNCHES.items() if v} == {
         "bitonic_tile", "bitonic_cross", "seg_boundary"}
     cpu = SuffixArrayIndex.from_docs(docs, device="cpu")
     torch.testing.assert_close(idx.sa.cpu(), cpu.sa, rtol=0, atol=0)
+    torch.testing.assert_close(kernel.sa.cpu(), cpu.sa, rtol=0, atol=0)
     x = np.asarray(idx.text.cpu())
     torch.testing.assert_close(
         suffix_array_torch(x, sort_impl="torch", device=cuda).cpu(), cpu.sa,
@@ -371,3 +380,41 @@ def test_store_round_trip_to_and_from_the_card(cuda, tmp_path):
     assert torch.equal(again.sa, sparse.sa)
     np.testing.assert_array_equal(again.count_batch(pats),
                                   on_cpu.count_batch(pats))
+
+
+# ------------------------------------------------- the data plane on the card
+def test_data_plane_on_the_card_equals_the_cpu_port(cuda):
+    from repro_torch.data.pipeline import (PipelineConfig, TrainingDataPlane,
+                                           synthetic_doc_shards)
+    shards = synthetic_doc_shards(12_000, 64, shard_docs=4, doc_len=1000,
+                                  dup_fraction=0.4, seed=3)
+    assert len(shards) == 3
+    rng = np.random.default_rng(11)
+    eval_docs = [rng.integers(0, 64, 1500) for _ in range(2)]
+    eval_docs[1][:300] = shards[1][0][:300]
+    cfg = PipelineConfig(seq_len=96, global_batch=4, dedup=True,
+                         dedup_min_len=24, gate_min_len=24, vocab=64)
+    card = TrainingDataPlane(cfg, eval_docs=eval_docs, device=cuda)
+    for shard in shards:
+        for key in ops.LAUNCHES:
+            ops.LAUNCHES[key] = 0
+        st = card.ingest_shard(shard)
+        assert st.builds == 1
+        # each segment build ran the radix path, "auto" on the card
+        assert {k for k, v in ops.LAUNCHES.items() if v} == {
+            "radix_hist", "radix_scatter"}
+    assert card.index.device.type == "cuda"
+    assert card.gate.index.sa.device.type == "cuda"
+    cpu = TrainingDataPlane(cfg, eval_docs=eval_docs, shards=shards,
+                            device="cpu")
+    assert card.report.dropped_chars == cpu.report.dropped_chars > 0
+    assert len(card._kept) == len(cpu._kept)
+    for a, b in zip(card._kept, cpu._kept):
+        np.testing.assert_array_equal(a, b)
+    for step in range(4):
+        got, want = card.batch_at(step), cpu.batch_at(step)
+        for k in want:
+            np.testing.assert_array_equal(got[k], want[k])
+    assert card.gate_stats() == cpu.gate_stats()
+    samples = [shards[2][1][10:300], rng.integers(0, 64, 200)]
+    assert card.probe(samples) == cpu.probe(samples)

@@ -506,10 +506,8 @@ def test_sa_config_matches_jax():
 def test_model_archs_are_not_ported_yet():
     assert len(model_archs()) == 10
     for arch in ("rwkv6-1.6b", "gemma3_1b", "phi3.5-moe-42b-a6.6b"):
-        with pytest.raises(NotImplementedError, match="item 10"):
+        with pytest.raises(NotImplementedError, match="item 2\\)"):
             get_config(arch)
-    with pytest.raises(NotImplementedError, match="items 4 and 9"):
-        get_config("suffix-array").to_pipeline()
     with pytest.raises(ValueError, match="unknown --arch"):
         get_config("nope")
 
