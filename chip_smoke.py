@@ -87,6 +87,32 @@ Phases (any failure exits non-zero; no phase's exception is caught):
    side plane's earlier shards and the profiler's own processing too) and
    the phase's own wall time (``phase_s``).
 
+10. The decoder-only LM at full width, on the SA data plane (phases 3-9's
+   device state freed first): (a) `repro_torch.launch.train.main` trains
+   gemma3-1b at its published widths (26 layers, d_model 1,152, vocab
+   262,144, window 512; about 1.0 B parameters, AdamW in float32) for 4
+   steps of 4 x 1,024 tokens, with dedup, the "mask" gate over 80 planted
+   eval blocks and the probe every 2 steps: the loss must be finite and
+   below ln(262,144) + 3, some step must mask targets and the gate must
+   have masked windows, the dedup report must have builds == shards > 1,
+   the probe must report samples, the plane's index builds must have
+   launched exactly the radix kernels and the train steps none; (b) 8 more
+   steps on one fixed batch (lr 3e-4, warmup 1): the last loss below the
+   first; then one more step under `torch.profiler`; (c) greedy
+   `prefill_then_decode` of 4 prompts of 520 tokens and 32 new tokens
+   (past the window, so every local ring buffer wraps): each step's
+   logits (the decode steps see the tokens a teacher-forced pass would)
+   equal a full `forward_hidden` within 0.05 of the largest logit at every
+   position; one decode step under `torch.profiler`; then `python -m
+   repro_torch.launch.serve --arch gemma3-1b --batch 4 --prompt-len 16
+   --gen 32`; (d) at ``smoke()`` the card's logits and loss equal the CPU
+   path's (same params from one generator) within the CPU tests'
+   tolerances, and the banded attention path at gemma3-1b's head shapes
+   (2,048 tokens, window 512) equals the CPU's. Prints a ``{"lm": ...}``
+   line: parameters, peak device memory, the train step's seconds (median
+   of steps 2-4), tokens/s and 6·N·tokens/s, decode ms a step and
+   tokens/s, the data plane's numbers and the phase's wall time.
+
 Standard output ends with a JSON line of per-kernel numbers, the card's
 name and power limit, and ``{"ok": true, "device": {...}}``.
 """
@@ -149,6 +175,30 @@ DP_PROBES = 8
 DP_PROBE_LEN = 256
 DP_TRACED_SHARD = 2
 
+#: phase 10: the trainer's arguments (the published gemma3-1b widths, no
+#: --smoke), the convergence run, the decode check and the smoke parity.
+LM_ARCH = "gemma3-1b"
+LM_SEQ_LEN = 1024
+LM_BATCH = 4
+#: 40 planted blocks (the reference's CI run) mask no window in the 4
+#: seeded steps at these widths (dedup drops most of the overlapping
+#: blocks); 80 mask one, in step 1.
+LM_PLANTED = 80
+LM_ARGV = ["--arch", LM_ARCH, "--steps", "4", "--seq-len", str(LM_SEQ_LEN),
+           "--batch", str(LM_BATCH), "--dedup", "--eval-gate",
+           "--gate-policy", "mask", "--plant-contamination", str(LM_PLANTED),
+           "--probe-every", "2", "--device", "cuda"]
+LM_CLI = ["--arch", LM_ARCH, "--batch", "4", "--prompt-len", "16", "--gen",
+          "32"]
+LM_CLI_TOKENS = 4 * 32
+LM_FIT_STEPS = 8
+LM_FIT_LR = 3e-4
+LM_PROMPT = 520
+LM_GEN = 32
+LM_REL = 0.05           # decode against forward; card against CPU
+LM_LOSS_ABS = 1e-2
+LM_BANDED_S = 2048
+
 #: kernels each path must launch, and no others.
 PATH_KERNELS = {"kernel": {"bitonic_tile", "bitonic_cross", "seg_boundary"},
                 "radix": {"radix_hist", "radix_scatter"},
@@ -205,6 +255,14 @@ def time_ms(fn, dev, reps: int = 1) -> float:
     for _ in range(reps):
         fn()
     return 1e3 * (time.perf_counter() - t0) / reps
+
+
+def empty_cache(dev) -> None:
+    import gc
+    import torch
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
 
 
 def sync(dev) -> None:
@@ -1658,6 +1716,268 @@ def data_plane(dev, n_chars: int = DP_CHARS, n_eval: int = DP_EVAL_DOCS
     return out
 
 
+# -------------------------------------------------------------- phase 10
+def lm_train(dev) -> tuple[dict, dict]:
+    """Phase 10 (a): `launch.train.main` at full width; returns its
+    report and what it saw: the trained model, the plane, the plane's
+    build time and launches, each step's launches and the run's."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as train_launch
+    seen: dict = {"steps": []}
+    make_step, make_state = train_launch.make_train_step, \
+        train_launch.make_train_state
+    build = train_launch.build_plane
+
+    def counted_build(args, vocab, *, device):
+        before = dict(ops.LAUNCHES)
+        t0 = time.perf_counter()
+        plane = build(args, vocab, device=device)
+        sync(dev)
+        seen["plane_s"] = time.perf_counter() - t0
+        seen["plane"] = plane
+        seen["plane_launches"] = {k: ops.LAUNCHES[k] - before[k]
+                                  for k in before}
+        return plane
+
+    def counted_step(cfg, tcfg):
+        step = make_step(cfg, tcfg)
+
+        def run(state, batch):
+            before = dict(ops.LAUNCHES)
+            out = step(state, batch)
+            seen["steps"].append({k: ops.LAUNCHES[k] - before[k]
+                                  for k in before if ops.LAUNCHES[k]
+                                  != before[k]})
+            return out
+        return run
+
+    def kept_state(params, tcfg):
+        seen["model"] = params
+        return make_state(params, tcfg)
+
+    zero_launches()
+    with mock.patch.object(train_launch, "build_plane", counted_build), \
+            mock.patch.object(train_launch, "make_train_step", counted_step), \
+            mock.patch.object(train_launch, "make_train_state", kept_state):
+        report = train_launch.main(LM_ARGV)
+    seen["launches"] = dict(ops.LAUNCHES)
+    return report, seen
+
+
+def lm_decode(dev, model, cfg) -> dict:
+    """Phase 10 (c): greedy decode past the window, each step's logits
+    held against a full forward of the decoded tokens (the steps see the
+    tokens a teacher-forced pass would), one decode step traced; then the
+    serving CLI."""
+    import numpy as np
+    import torch
+    from repro_torch.launch import serve
+    from repro_torch.models import lm
+    from repro_torch.models.layers import logits_from_embedding
+    rng = np.random.default_rng(SEED)
+    prompts = rng.integers(0, cfg.vocab_size, (LM_BATCH, LM_PROMPT))
+    serve.prefill_then_decode(model, cfg, prompts[:, :8], 2)  # warm-up
+    steps, rings = [], set()
+    step = serve.decode_step
+
+    def recorded(params, cfg_, token, states, cur_pos):
+        rings.update(st["t"]["k"].shape[1] for st in states)
+        logits, states = step(params, cfg_, token, states, cur_pos)
+        steps.append(logits[:, 0])
+        return logits, states
+
+    sync(dev)
+    t0 = time.perf_counter()
+    with mock.patch.object(serve, "decode_step", recorded):
+        toks = serve.prefill_then_decode(model, cfg, prompts, LM_GEN)
+    sync(dev)
+    decode_s = time.perf_counter() - t0
+    T = LM_PROMPT + LM_GEN
+    assert toks.shape == (LM_BATCH, T) and len(steps) == T
+    assert sorted(rings) == [cfg.window, T], rings      # the local rings wrap
+    with torch.no_grad():
+        hidden, _, _ = lm.forward_hidden(model, cfg, toks)
+        full = logits_from_embedding(hidden, model.embed, cfg.logit_softcap)
+        del hidden
+        assert bool(torch.isfinite(full).all())
+        scale = float(full.abs().max())
+        errs = [float((lg - full[:, t]).abs().max()) / scale
+                for t, lg in enumerate(steps)]
+        del full, steps
+        states = lm.init_decode_states(cfg, LM_BATCH, cache_len=T,
+                                       device=dev)
+        traced = trace_build(dev, "decode step", lambda: lm.decode_step(
+            model, cfg, toks[:, :1], states, 0))
+        del states
+    worst = max(errs)
+    assert worst < LM_REL, (errs.index(worst), worst)
+    t0 = time.perf_counter()
+    cli = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve", *LM_CLI],
+        cwd=ROOT, capture_output=True, text=True, timeout=600,
+        env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
+    assert cli.returncode == 0, cli.stdout + cli.stderr
+    assert f"generated {LM_CLI_TOKENS} tokens" in cli.stdout, cli.stdout
+    return {"batch": LM_BATCH, "prompt": LM_PROMPT, "gen": LM_GEN,
+            "seconds": decode_s, "ms_per_step": 1e3 * decode_s / T,
+            "tokens_per_s": LM_BATCH * T / decode_s,
+            "generated_tokens_per_s": LM_BATCH * LM_GEN / decode_s,
+            "max_rel_err": worst, "worst_position": errs.index(worst),
+            "errs_past_window_max": max(errs[cfg.window:]),
+            "trace": traced,
+            "cli_s": time.perf_counter() - t0,
+            "cli": [ln for ln in cli.stdout.splitlines()
+                    if ln.startswith("generated")][0]}
+
+
+def lm_card_against_cpu(dev) -> dict:
+    """Phase 10 (d): gemma3-1b at smoke on the card against the CPU path
+    with the same params, and the banded attention path at full head
+    shapes."""
+    import copy
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import lm
+    from repro_torch.models.attention import flash_attention
+    from repro_torch.models.layers import logits_from_embedding
+    cfg = get_config(LM_ARCH).smoke()
+    host = lm.lm_init(cfg, generator=torch.Generator().manual_seed(SEED),
+                      device="cpu")
+    card = copy.deepcopy(host).to(dev)
+    rng = np.random.default_rng(SEED)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 41)))
+    mask = torch.from_numpy((rng.random((2, 40)) > 0.3).astype(np.float32))
+    out = {}
+    with torch.no_grad():
+        res = {}
+        for name, model, d in (("cpu", host, "cpu"), ("card", card, dev)):
+            h, _, _ = lm.forward_hidden(model, cfg, toks[:, :-1].to(d))
+            logits = logits_from_embedding(h, model.embed,
+                                           cfg.logit_softcap).cpu()
+            loss, _ = lm.lm_loss(model, cfg, {"tokens": toks.to(d),
+                                              "loss_mask": mask.to(d)})
+            res[name] = (logits, float(loss))
+    rel = float((res["card"][0] - res["cpu"][0]).abs().max()
+                / res["cpu"][0].abs().max())
+    out["smoke_logits_rel"] = rel
+    out["smoke_loss"] = {k: v[1] for k, v in res.items()}
+    assert rel < LM_REL, rel
+    assert abs(res["card"][1] - res["cpu"][1]) < LM_LOSS_ABS, res
+    full = get_config(LM_ARCH)
+    g = torch.Generator().manual_seed(SEED)
+    q = torch.randn(1, LM_BANDED_S, full.n_heads, full.hd, generator=g)
+    k = torch.randn(1, LM_BANDED_S, full.n_kv_heads, full.hd, generator=g)
+    v = torch.randn(1, LM_BANDED_S, full.n_kv_heads, full.hd, generator=g)
+    q, k, v = (x.to(torch.bfloat16) for x in (q, k, v))
+    want = flash_attention(q, k, v, window=full.window).float()
+    got = flash_attention(q.to(dev), k.to(dev), v.to(dev),
+                          window=full.window).float().cpu()
+    out["banded_rel"] = float((got - want).abs().max() / want.abs().max())
+    assert out["banded_rel"] < LM_REL, out
+    return out
+
+
+def lm_phase(dev) -> dict:
+    """Phase 10: (a)-(d) in this process; returns the {"lm": ...} record
+    and the phase's kernel launches."""
+    import math
+    import numpy as np
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.models.lm import param_count
+    from repro_torch.train.optim import OptConfig
+    from repro_torch.train.train_step import (TrainConfig, make_train_state,
+                                              make_train_step)
+    t_phase = time.perf_counter()
+    cuda = dev.type == "cuda"
+    if cuda:
+        sync(dev)               # initialises CUDA when this phase runs first
+        torch.cuda.reset_peak_memory_stats(dev)
+
+    # (a) train at full width on the data plane
+    t0 = time.perf_counter()
+    report, seen = lm_train(dev)
+    train_s = time.perf_counter() - t0
+    model = seen.pop("model")
+    cfg = model.cfg
+    n_params = param_count(model)
+    launched = {k for k, v in seen["launches"].items() if v}
+    if cuda:
+        assert launched == PATH_KERNELS["radix"], seen["launches"]
+        assert {k for k, v in seen["plane_launches"].items() if v} == \
+            PATH_KERNELS["radix"], seen["plane_launches"]
+    assert len(seen["steps"]) == 4 and not any(seen["steps"]), seen["steps"]
+    assert math.isfinite(report["loss"]) and \
+        report["loss"] < math.log(cfg.vocab_size) + 3, report
+    masked = [s["masked_frac"] for s in report["steps"]]
+    assert max(masked) > 0 and report["gate"]["masked_windows"] > 0, report
+    assert report["dedup"]["builds"] == report["dedup"]["shards"] > 1, report
+    assert report["probe"]["samples"] > 0, report
+    step_s = float(np.median([s["s"] for s in report["steps"][1:4]]))
+    tokens = LM_BATCH * LM_SEQ_LEN
+    plane = seen.pop("plane")
+
+    # (b) convergence on one fixed batch, a fresh optimizer state
+    batch = plane.batch_at(0)
+    del plane
+    empty_cache(dev)
+    tcfg = TrainConfig(opt=OptConfig(name=cfg.optimizer, lr=LM_FIT_LR),
+                       schedule=cfg.lr_schedule, warmup=1,
+                       total_steps=LM_FIT_STEPS)
+    state = make_train_state(model, tcfg)
+    step = make_train_step(cfg, tcfg)
+    zero_launches()
+    fit = []
+    for _ in range(LM_FIT_STEPS):
+        state, m = step(state, batch)
+        fit.append(float(m["loss"]))
+    assert not any(ops.LAUNCHES.values()), ops.LAUNCHES
+    assert all(map(math.isfinite, fit)) and fit[-1] < fit[0], fit
+    held = {"state": state}
+
+    def one_step():
+        held["state"], _ = step(held["state"], batch)
+    step_trace = trace_build(dev, "train step", one_step)
+    del state, step, held
+    empty_cache(dev)
+    peak_train = torch.cuda.max_memory_allocated(dev) if cuda else None
+
+    # (c) decode against forward past the window, then the serving CLI
+    zero_launches()
+    decode = lm_decode(dev, model, cfg)
+    assert not any(ops.LAUNCHES.values()), ops.LAUNCHES
+    del model
+    empty_cache(dev)
+
+    # (d) the card against the CPU path at smoke
+    parity = lm_card_against_cpu(dev)
+    return {"card": card_line() if cuda else "cpu", "arch": LM_ARCH,
+            "params": n_params,
+            "max_memory_allocated": (torch.cuda.max_memory_allocated(dev)
+                                     if cuda else None),
+            "max_memory_allocated_train": peak_train,
+            "train": {"argv": LM_ARGV, "seconds": train_s,
+                      "step_s_median_2_4": step_s,
+                      "step_s": [s["s"] for s in report["steps"]],
+                      "tokens_per_step": tokens,
+                      "tokens_per_s": tokens / step_s,
+                      "tflops": 6 * n_params * tokens / step_s / 1e12,
+                      "tflops_formula": "6 * params * tokens_per_s / 1e12 "
+                                        "(params include the 302M-entry "
+                                        "embedding; attention not counted)",
+                      "loss": [s["loss"] for s in report["steps"]],
+                      "masked_frac": masked},
+            "fit": {"lr": LM_FIT_LR, "losses": fit},
+            "train_step_trace": step_trace,
+            "data_plane": {"build_s": seen["plane_s"],
+                           "dedup": report["dedup"], "gate": report["gate"],
+                           "probe": report["probe"],
+                           "launches": seen["plane_launches"]},
+            "decode": decode, "card_against_cpu": parity,
+            "phase_s": time.perf_counter() - t_phase}, seen["launches"]
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1697,6 +2017,10 @@ def main() -> int:
     served = serving(dev, idx, sp, docs, pats, counts)
     plane = data_plane(dev)
     log(json.dumps({"data_plane": plane}))
+    del idx, sp, pats, counts, located
+    empty_cache(dev)
+    lm, lm_launches = lm_phase(dev)
+    log(json.dumps({"lm": lm}))
     for entry in table:
         names = ("bitonic_tile", "bitonic_cross") \
             if entry["name"] == "bitonic_sort" else \
@@ -1706,6 +2030,7 @@ def main() -> int:
                                         for k in names)
         entry["launches_data_plane"] = sum(plane["launches"].get(k, 0)
                                            for k in names)
+        entry["launches_lm"] = sum(lm_launches.get(k, 0) for k in names)
     print(json.dumps({"kernels": table}))
     print(card)
     print(json.dumps({"ok": True, "device": {

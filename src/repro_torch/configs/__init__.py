@@ -1,11 +1,14 @@
 """Launch configurations: ``--arch <id>`` resolves here.
 
 The port of `repro.configs`. The paper's own workload, ``suffix-array``
-(`SAConfig`), is ported; the language-model architectures of the JAX
-package are not yet (ROADMAP queue 1, item 2) and raise
-`NotImplementedError`.
+(`SAConfig`), and the five decoder-only attention architectures of
+`PORTED_ARCHS` are ported. The other five model architectures of the JAX
+package (MoE, RG-LRU, RWKV6, encoder-decoder) are not yet (ROADMAP queue
+1, item 2b) and raise `NotImplementedError`.
 """
 from __future__ import annotations
+
+from importlib import import_module
 
 from .suffix_array import CONFIG as SUFFIX_ARRAY, SAConfig
 
@@ -15,6 +18,11 @@ MODEL_ARCHS = (
     "recurrentgemma_2b", "kimi_k2_1t_a32b", "phi35_moe_42b_a6_6b",
     "rwkv6_1_6b", "chameleon_34b", "whisper_small",
 )
+
+#: the model architectures the port runs: global and sliding-window
+#: attention with the dense gated MLP.
+PORTED_ARCHS = ("minicpm_2b", "gemma2_27b", "gemma3_27b", "gemma3_1b",
+                "chameleon_34b")
 
 _ALIASES = {
     "minicpm-2b": "minicpm_2b",
@@ -32,16 +40,18 @@ _ALIASES = {
 
 def get_config(arch: str):
     """The configuration of ``--arch arch``: `SAConfig` for
-    ``suffix-array``; a model architecture raises `NotImplementedError`,
-    an unknown one `ValueError`."""
+    ``suffix-array``, a `ModelConfig` for a ported model architecture; an
+    architecture still to port raises `NotImplementedError`, an unknown
+    one `ValueError`."""
     key = _ALIASES.get(arch, arch).replace("-", "_").replace(".", "_")
     if key == "suffix_array":
         return SUFFIX_ARRAY
+    if key in PORTED_ARCHS:
+        return import_module(f"{__name__}.{key}").CONFIG
     if key in MODEL_ARCHS:
         raise NotImplementedError(
-            f"--arch {arch}: the language-model stack (models, train, the "
-            f"LM half of launch/serve) is not ported yet (ROADMAP queue 1, "
-            f"item 2)")
+            f"--arch {arch}: the MoE, RG-LRU, RWKV6 and encoder-decoder "
+            f"architectures are not ported yet (ROADMAP queue 1, item 2b)")
     raise ValueError(f"unknown --arch {arch!r}; expected suffix-array or "
                      f"one of {sorted(_ALIASES)}")
 
@@ -50,4 +60,5 @@ def model_archs() -> list[str]:
     return list(MODEL_ARCHS)
 
 
-__all__ = ["MODEL_ARCHS", "SAConfig", "get_config", "model_archs"]
+__all__ = ["MODEL_ARCHS", "PORTED_ARCHS", "SAConfig", "get_config",
+           "model_archs"]

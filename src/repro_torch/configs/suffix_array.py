@@ -60,6 +60,7 @@ class SAConfig:
     gate_min_len: int = 48      # train/eval contamination-gate gram length
     gate_policy: str = "reject"  # "reject" | "mask"
                                 # (repro_torch.data.pipeline.GATE_POLICIES)
+    shard_docs: int = 8         # documents per streamed ingest shard
 
     def to_pipeline(self, *, seq_len: int = 512, global_batch: int = 8,
                     dedup: bool = True, vocab=None, seed: int = 0):

@@ -1,11 +1,11 @@
 """Serve substring queries over a suffix-array index through the
-asynchronous serving tier, on the card.
+asynchronous serving tier, or decode from a language model, on the card.
 
     python -m repro_torch.launch.serve --arch suffix-array --smoke \\
         --queries 64 --store build/sa_store --query-batch 64 \\
         --offered-qps 2000
 
-The port of the suffix-array half of `repro.launch.serve`. It obtains a
+The port of `repro.launch.serve`. Its suffix-array half obtains a
 `repro_torch.api.SuffixArrayIndex` over a seeded synthetic corpus —
 restored from a persistent `repro_torch.api.IndexStore` when `--store`
 points at a warm one, built through the facade otherwise (the port's
@@ -18,10 +18,17 @@ pass excluded. `--segments K` serves a `SegmentedIndex` of K segments
 (persisted through a `SegmentedIndexStore`) and `--ingest M` streams M
 documents through `add_docs` after the build.
 
+The LM half (``--arch <model>``, one of the ported decoder-only
+attention architectures): `prefill_then_decode` of a seeded prompt batch
+through a freshly initialised model, greedy (or sampled with
+``--temperature > 0`` from a seeded `torch.Generator`).
+
+    python -m repro_torch.launch.serve --arch gemma3-1b --batch 4 \\
+        --prompt-len 16 --gen 32
+
 The JAX package's mesh/BSP route (a 1-D mesh when several devices are
-visible) and its language-model half (``--arch <model>``: prefill and
-decode) have no counterpart yet; a model arch raises
-`NotImplementedError` (ROADMAP queue 1, item 2).
+visible) has no counterpart yet (ROADMAP queue 1, item 3), and a model
+architecture still to port raises `NotImplementedError` (item 2b).
 """
 from __future__ import annotations
 
@@ -35,6 +42,60 @@ import torch
 
 from ..configs import get_config
 from ..core.compat import resolve_device
+from ..models.lm import decode_step, init_decode_states, lm_init
+
+
+@torch.no_grad()
+def prefill_then_decode(params, cfg, prompts, gen: int, *,
+                        temperature: float = 0.0, seed: int = 0):
+    """prompts integer [B, P] (numpy or tensor) → tokens int32 [B, P+gen] on
+    the model's device. `params` is an `repro_torch.models.lm.LM`. Prefill
+    runs stepwise through the decode path (correct for ring buffers), as
+    in the JAX package. Greedy at ``temperature=0``; otherwise sampled
+    from a `torch.Generator` seeded with `seed` (not the JAX package's
+    random stream)."""
+    dev = params.device
+    prompts = torch.as_tensor(np.asarray(prompts) if not torch.is_tensor(
+        prompts) else prompts).to(dev, torch.int32)
+    B, P = prompts.shape
+    states = init_decode_states(cfg, B, cache_len=P + gen, device=dev)
+    gen_rng = torch.Generator(device=dev).manual_seed(seed)
+    out = [prompts[:, i:i + 1] for i in range(P)]
+    logits = None
+    for t in range(P):
+        logits, states = decode_step(params, cfg, out[t], states, t)
+    for g in range(gen):
+        if temperature > 0:
+            probs = torch.softmax(logits[:, 0] / temperature, dim=-1)
+            nxt = torch.multinomial(probs, 1, generator=gen_rng)
+        else:
+            nxt = torch.argmax(logits[:, 0], dim=-1)[:, None]
+        out.append(nxt.to(torch.int32))
+        logits, states = decode_step(params, cfg, out[-1], states, P + g)
+    return torch.cat(out, dim=1)
+
+
+def serve_lm(cfg, *, batch: int, prompt_len: int, gen: int,
+             temperature: float = 0.0, device="cuda"):
+    """The LM branch of `main`: seeded prompts through a seeded model.
+    Returns the tokens [batch, prompt_len + gen]."""
+    dev = resolve_device(device)
+    params = lm_init(cfg, seed=0, device=dev)
+    rng = np.random.default_rng(0)
+    prompts = rng.integers(0, cfg.vocab_size, (batch, prompt_len))
+    _sync(dev)
+    t0 = time.time()
+    toks = prefill_then_decode(params, cfg, prompts, gen,
+                               temperature=temperature)
+    _sync(dev)
+    dt = time.time() - t0
+    n_new = batch * gen
+    print(f"generated {n_new} tokens in {dt:.2f}s "
+          f"({n_new / dt:.1f} tok/s batched, device={dev})")
+    print("sample:", toks[0, :32].tolist())
+    if toks.shape != (batch, prompt_len + gen):
+        raise RuntimeError(f"decoded shape {tuple(toks.shape)}")
+    return toks
 
 
 @dataclass
@@ -256,20 +317,26 @@ def serve_sa_queries(cfg, *, n_chars: int, n_docs: int, n_queries: int,
                       warmup_shapes=shapes, ingest=ingested)
 
 
-def main(argv=None) -> SAServeRun:
+def main(argv=None):
     ap = argparse.ArgumentParser(
         description="Serve substring count queries over a seeded corpus "
-                    "through the asynchronous serving tier.")
+                    "through the asynchronous serving tier, or decode "
+                    "from a seeded language model (--arch <model>).")
     ap.add_argument("--arch", required=True)
     ap.add_argument("--smoke", action="store_true",
-                    help="20,000 corpus chars in place of cfg.n")
+                    help="20,000 corpus chars in place of cfg.n (LM: the "
+                         "reduced same-family config)")
     ap.add_argument("--device", default="cuda",
                     help="torch device to build and serve on "
                          "(default: cuda)")
     ap.add_argument("--batch", type=int, default=4,
-                    help="documents in the corpus")
+                    help="documents in the corpus (LM: prompts)")
     ap.add_argument("--prompt-len", type=int, default=16,
-                    help="pattern length")
+                    help="pattern length (LM: prompt length)")
+    ap.add_argument("--gen", type=int, default=32,
+                    help="LM: tokens to decode after the prompt")
+    ap.add_argument("--temperature", type=float, default=0.0,
+                    help="LM: sampling temperature (0 = greedy)")
     ap.add_argument("--queries", type=int, default=64,
                     help="open-loop queries to serve")
     ap.add_argument("--store", default=None,
@@ -300,7 +367,13 @@ def main(argv=None) -> SAServeRun:
                          "(requires --segments; default: cfg.ingest)")
     args = ap.parse_args(argv)
 
-    cfg = get_config(args.arch)     # a model arch raises NotImplementedError
+    cfg = get_config(args.arch)
+    if getattr(cfg, "name", "") != "suffix-array":
+        if args.smoke:
+            cfg = cfg.smoke()
+        return serve_lm(cfg, batch=args.batch, prompt_len=args.prompt_len,
+                        gen=args.gen, temperature=args.temperature,
+                        device=args.device)
     return serve_sa_queries(cfg, n_chars=20_000 if args.smoke else cfg.n,
                             n_docs=args.batch, n_queries=args.queries,
                             pattern_len=args.prompt_len,

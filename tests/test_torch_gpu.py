@@ -418,3 +418,75 @@ def test_data_plane_on_the_card_equals_the_cpu_port(cuda):
     assert card.gate_stats() == cpu.gate_stats()
     samples = [shards[2][1][10:300], rng.integers(0, 64, 200)]
     assert card.probe(samples) == cpu.probe(samples)
+
+
+# ------------------------------------------------------------------ the LM
+def _lm_pair(cuda, arch="gemma3_1b"):
+    """gemma3-1b at smoke: the same params (one CPU generator) on the CPU
+    and on the card."""
+    import copy
+    from repro_torch.configs import get_config
+    from repro_torch.models import lm
+    cfg = get_config(arch).smoke()
+    host = lm.lm_init(cfg, generator=torch.Generator().manual_seed(0),
+                      device="cpu")
+    return cfg, host, copy.deepcopy(host).to(cuda)
+
+
+def test_lm_on_the_card_matches_the_cpu_path(cuda):
+    """Logits within 0.05 of the largest (the bf16 rule of the CPU
+    tests), the loss within 1e-2, one train step's loss and grad norm
+    within 1e-2 and 5%; the train step launches no hand kernel."""
+    from repro_torch.models import lm
+    from repro_torch.models.layers import logits_from_embedding
+    from repro_torch.train.optim import OptConfig
+    from repro_torch.train.train_step import (TrainConfig, make_train_state,
+                                              make_train_step)
+    cfg, host, card = _lm_pair(cuda)
+    rng = np.random.default_rng(0)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 41)))
+    mask = torch.from_numpy((rng.random((2, 40)) > 0.3).astype(np.float32))
+    with torch.no_grad():
+        out = {}
+        for name, model, dev in (("cpu", host, "cpu"), ("card", card, cuda)):
+            h, _, _ = lm.forward_hidden(model, cfg, toks[:, :-1].to(dev))
+            logits = logits_from_embedding(h, model.embed, cfg.logit_softcap)
+            loss, _ = lm.lm_loss(model, cfg, {"tokens": toks.to(dev),
+                                              "loss_mask": mask.to(dev)})
+            out[name] = (logits.cpu(), float(loss))
+    want, got = out["cpu"], out["card"]
+    assert float((got[0] - want[0]).abs().max() / want[0].abs().max()) < 0.05
+    assert abs(got[1] - want[1]) < 1e-2
+    tcfg = TrainConfig(opt=OptConfig(lr=1e-3), warmup=0, total_steps=4)
+    batch = {"tokens": toks.numpy(), "loss_mask": mask.numpy()}
+    metrics = {}
+    for name, model in (("cpu", host), ("card", card)):
+        before = dict(ops.LAUNCHES)
+        _, metrics[name] = make_train_step(cfg, tcfg)(
+            make_train_state(model, tcfg), batch)
+        assert ops.LAUNCHES == before
+    assert abs(float(metrics["card"]["loss"])
+               - float(metrics["cpu"]["loss"])) < 1e-2
+    assert abs(float(metrics["card"]["grad_norm"])
+               / float(metrics["cpu"]["grad_norm"]) - 1) < 0.05
+    assert next(card.parameters()).device.type == "cuda"
+
+
+def test_lm_decode_matches_forward_past_the_window_on_the_card(cuda):
+    from repro_torch.launch.serve import prefill_then_decode
+    from repro_torch.models import lm
+    from repro_torch.models.layers import logits_from_embedding
+    cfg, _, card = _lm_pair(cuda)
+    prompts = np.random.default_rng(1).integers(0, cfg.vocab_size, (3, 12))
+    toks = prefill_then_decode(card, cfg, prompts, 14)
+    T = toks.shape[1]
+    assert toks.device.type == "cuda" and T > cfg.window
+    with torch.no_grad():
+        h, _, _ = lm.forward_hidden(card, cfg, toks)
+        full = logits_from_embedding(h, card.embed, cfg.logit_softcap)
+        scale = float(full.abs().max())
+        states = lm.init_decode_states(cfg, 3, cache_len=T, device=cuda)
+        for t in range(T):
+            lg, states = lm.decode_step(card, cfg, toks[:, t:t + 1], states,
+                                        t)
+            assert float((lg[:, 0] - full[:, t]).abs().max()) / scale < 0.05
