@@ -112,6 +112,32 @@ Phases (any failure exits non-zero; no phase's exception is caught):
    line: parameters, peak device memory, the train step's seconds (median
    of steps 2-4), tokens/s and 6·N·tokens/s, decode ms a step and
    tokens/s, the data plane's numbers and the phase's wall time.
+11. The rest of the LM stack at published widths (phase 10's state freed
+   first): (a) phi3.5-moe (d_model 4,096, 32 heads of 128 with 8 kv heads,
+   16 experts of d_ff 6,400, top-2, capacity 1.3, vocab 32,064; AdamW in
+   float32) with its depth cut from 32 to 2 layers (2.73 B parameters)
+   trains 4 steps of 4 x 1,024 tokens through the trainer's own
+   functions (`build_plane`, `lm_init`, `make_train_state`,
+   `make_train_step`, `run_probe`) on phase 10's data plane: the plane's
+   builds launch exactly the radix kernels and the steps none, the last
+   loss is below ln(32,064) + 3, a step masks targets, the probe reports
+   samples; then 4 rows decode 32 + 16 sampled tokens and each step's
+   logits equal a full forward within 0.05 of the largest logit, both at
+   a capacity that drops nothing (a capacity counts the tokens of its
+   call, so where the forward drops an assignment the two differ by
+   design; the forward's drop share at the config's capacity is printed);
+   (b) recurrentgemma-2b (5 layers: one (r, r, l) period and the (r, r)
+   tail), rwkv6-1.6b (2 layers) and whisper-small (whole, 1,500 encoder
+   frames) at their published widths: one train step each on seeded
+   tokens (2 x 1,024; whisper 2 x 448), one more rwkv6 step under
+   `torch.profiler` (its kernel count), greedy decode of 16 + 16 tokens
+   against the forward within 0.05; (c) the five new configs at smoke()
+   on the card against the CPU path (same params): logits within 0.05 of
+   the largest, losses within 1e-2. Prints a ``{"lm_kinds": ...}`` line:
+   parameters, step seconds (phi: step 1 and the median of steps 2-4),
+   tokens/s, peak device memory, the xent and aux losses and the share
+   of token-expert assignments the capacities dropped, each step's, the
+   decode errors and the phase's wall time.
 
 Standard output ends with a JSON line of per-kernel numbers, the card's
 name and power limit, and ``{"ok": true, "device": {...}}``.
@@ -198,6 +224,33 @@ LM_GEN = 32
 LM_REL = 0.05           # decode against forward; card against CPU
 LM_LOSS_ABS = 1e-2
 LM_BANDED_S = 2048
+
+#: phase 11 (a): phi3.5-moe at its published widths, depth cut from 32 to 2
+#: layers (a layer holds ~1.30 B parameters, 1.26 B of them in the 16
+#: experts; with AdamW in float32 at 16 B a parameter a third layer would
+#: pass 64 GB before activations), trained by the trainer's own functions
+#: on phase 10's data plane; then a sampled decode against the forward.
+MOE_ARCH = "phi3.5-moe-42b-a6.6b"
+MOE_LAYERS = 2
+MOE_ARGV = ["--arch", MOE_ARCH, "--steps", "4", "--seq-len", str(LM_SEQ_LEN),
+            "--batch", str(LM_BATCH), "--dedup", "--eval-gate",
+            "--gate-policy", "mask", "--plant-contamination", str(LM_PLANTED),
+            "--probe-every", "2", "--device", "cuda"]
+MOE_PROMPT = 32
+MOE_GEN = 16
+#: (b): the other new kinds at their published widths, one train step each
+#: on seeded tokens, then greedy decode against the forward: (arch, layers
+#: or None for the published depth, batch, decoder tokens). recurrentgemma
+#: keeps one (r, r, l) period and the (r, r) tail, rwkv6 2 of 24 layers
+#: (autograd keeps a [B, H, 64, 64] state a step); whisper-small is whole,
+#: at its published decoder context of 448 and 1,500 encoder frames.
+KIND_RUNS = (("recurrentgemma-2b", 5, 2, 1024), ("rwkv6-1.6b", 2, 2, 1024),
+             ("whisper-small", None, 2, 448))
+KIND_PROMPT = 16
+KIND_GEN = 16
+#: (c): the five configs of this slice at smoke(), the card against the CPU.
+NEW_ARCHS = ("kimi-k2-1t-a32b", "phi3.5-moe-42b-a6.6b", "recurrentgemma-2b",
+             "rwkv6-1.6b", "whisper-small")
 
 #: kernels each path must launch, and no others.
 PATH_KERNELS = {"kernel": {"bitonic_tile", "bitonic_cross", "seg_boundary"},
@@ -1164,6 +1217,7 @@ def trace_build(dev, label: str, build, top: int = 10) -> dict:
     host = sorted(prof.key_averages(), key=lambda a: -a.self_cpu_time_total)
     return {"build": label, "wall_ms": wall_ms, "device_busy_ms": busy_ms,
             "device_idle_share": 1 - busy_ms / wall_ms if busy_ms else None,
+            "device_kernels": sum(count for _, count in by_name.values()),
             "top": [{"name": name[:90], "ms": ms, "count": count}
                     for name, (ms, count) in ranked],
             "host_top": [{"name": a.key[:60],
@@ -1780,9 +1834,9 @@ def lm_decode(dev, model, cfg) -> dict:
     steps, rings = [], set()
     step = serve.decode_step
 
-    def recorded(params, cfg_, token, states, cur_pos):
+    def recorded(params, cfg_, token, states, cur_pos, **kw):
         rings.update(st["t"]["k"].shape[1] for st in states)
-        logits, states = step(params, cfg_, token, states, cur_pos)
+        logits, states = step(params, cfg_, token, states, cur_pos, **kw)
         steps.append(logits[:, 0])
         return logits, states
 
@@ -1978,6 +2032,323 @@ def lm_phase(dev) -> dict:
             "phase_s": time.perf_counter() - t_phase}, seen["launches"]
 
 
+# -------------------------------------------------------------- phase 11
+def moe_routes(record: list):
+    """A patch of `ffn.moe_route` that appends each call's (kept, routed)
+    token-expert assignment counts to `record` (the kept count stays on
+    the device until read)."""
+    from repro_torch.models import ffn
+    route = ffn.moe_route
+
+    def recorded(logits, cfg):
+        rt = route(logits, cfg)
+        record.append((rt.ekeep.sum(), rt.ids.numel()))
+        return rt
+    return mock.patch.object(ffn, "moe_route", recorded)
+
+
+def drop_share(record: list):
+    """The share of routed assignments the capacities dropped."""
+    if not record:
+        return None
+    return 1 - sum(int(k) for k, _ in record) / sum(n for _, n in record)
+
+
+def decode_against_forward(dev, model, cfg, prompts, gen: int, *,
+                           enc_out=None, temperature: float = 0.0):
+    """`prefill_then_decode` of `prompts` with each step's logits kept,
+    held against one `forward_hidden` of the decoded tokens (the steps
+    see the tokens a teacher-forced pass would). Returns its record and
+    the tokens."""
+    import torch
+    from repro_torch.launch import serve
+    from repro_torch.models import lm
+    from repro_torch.models.layers import logits_from_embedding
+    steps = []
+    step = serve.decode_step
+
+    def recorded(params, cfg_, token, states, cur_pos, **kw):
+        logits, states = step(params, cfg_, token, states, cur_pos, **kw)
+        steps.append(logits[:, 0])
+        return logits, states
+
+    sync(dev)
+    t0 = time.perf_counter()
+    with mock.patch.object(serve, "decode_step", recorded):
+        toks = serve.prefill_then_decode(model, cfg, prompts, gen,
+                                         enc_out=enc_out,
+                                         temperature=temperature, seed=SEED)
+    sync(dev)
+    decode_s = time.perf_counter() - t0
+    T = toks.shape[1]
+    assert len(steps) == T, (len(steps), T)
+    record: list = []
+    with torch.no_grad(), moe_routes(record):
+        hidden, _, _ = lm.forward_hidden(model, cfg, toks, enc_out=enc_out)
+        full = logits_from_embedding(hidden, model.embed, cfg.logit_softcap)
+    assert bool(torch.isfinite(full).all())
+    scale = float(full.abs().max())
+    errs = [float((lg - full[:, t]).abs().max()) / scale
+            for t, lg in enumerate(steps)]
+    worst = max(errs)
+    rec = {"rows": toks.shape[0], "positions": T, "seconds": decode_s,
+           "ms_per_step": 1e3 * decode_s / T, "max_rel_err": worst,
+           "worst_position": errs.index(worst),
+           "forward_dropped_share": drop_share(record)}
+    assert worst < LM_REL, (cfg.name, rec)
+    return rec, toks
+
+
+def moe_train(dev) -> tuple[dict, dict]:
+    """Phase 11 (a): phi3.5-moe at 2 layers through the trainer's own
+    functions on phase 10's plane; returns its record and the run's
+    kernel launches."""
+    import math
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as train_launch
+    from repro_torch.models import lm
+    from repro_torch.train.optim import OptConfig
+    from repro_torch.train.train_step import TrainConfig
+    cuda = dev.type == "cuda"
+    args = train_launch.parser().parse_args(MOE_ARGV)
+    cfg = get_config(MOE_ARCH).replace(n_layers=MOE_LAYERS)
+    tcfg = TrainConfig(opt=OptConfig(name=cfg.optimizer, lr=args.lr),
+                       schedule=cfg.lr_schedule,
+                       warmup=max(args.steps // 20, 1),
+                       total_steps=args.steps)
+    if cuda:
+        torch.cuda.reset_peak_memory_stats(dev)
+    zero_launches()
+    t0 = time.perf_counter()
+    plane = train_launch.build_plane(args, vocab=min(cfg.vocab_size, 256),
+                                     device=dev)
+    sync(dev)
+    plane_s = time.perf_counter() - t0
+    plane_launches = dict(ops.LAUNCHES)
+    t0 = time.perf_counter()
+    model = train_launch.lm_init(cfg, seed=0, device=dev)
+    sync(dev)
+    init_s = time.perf_counter() - t0
+    n_params = lm.param_count(model)
+    experts = sum(p.numel() for n, p in model.named_parameters()
+                  if ".moe.w" in n)
+    state = train_launch.make_train_state(model, tcfg)
+    step = train_launch.make_train_step(cfg, tcfg)
+    steps, probe, routed = [], {}, []
+    for i in range(args.steps):
+        batch = plane.batch_at(i)
+        before = dict(ops.LAUNCHES)
+        record: list = []
+        t0 = time.perf_counter()
+        with moe_routes(record):
+            state, m = step(state, batch)
+        sync(dev)
+        rec = {"s": time.perf_counter() - t0}
+        assert ops.LAUNCHES == before, ops.LAUNCHES  # no hand kernel
+        rec.update({k: float(m[k]) for k in ("loss", "xent", "aux",
+                                             "grad_norm", "masked_frac")})
+        rec["dropped_share"] = drop_share(record)
+        routed += record
+        steps.append(rec)
+        if (i + 1) % args.probe_every == 0:
+            probe = train_launch.run_probe(plane, model, cfg, args, step=i)
+    sync(dev)
+    launches = dict(ops.LAUNCHES)
+    if cuda:
+        assert {k for k, v in launches.items() if v} == \
+            PATH_KERNELS["radix"], launches
+        assert {k for k, v in plane_launches.items() if v} == \
+            PATH_KERNELS["radix"], plane_launches
+    losses = [s["loss"] for s in steps]
+    assert all(map(math.isfinite, losses)), steps
+    assert losses[-1] < math.log(cfg.vocab_size) + 3, steps
+    assert max(s["masked_frac"] for s in steps) > 0, steps
+    assert plane.report.builds == plane.report.shards > 1
+    assert probe.get("samples", 0) > 0, probe
+    step_s = float(np.median([s["s"] for s in steps[1:]]))
+    tokens = LM_BATCH * LM_SEQ_LEN
+    peak_train = torch.cuda.max_memory_allocated(dev) if cuda else None
+    gate = plane.gate_stats()
+    dedup = {"dropped_chars": plane.report.dropped_chars,
+             "shards": plane.report.shards, "builds": plane.report.builds}
+    del state, step, plane
+    empty_cache(dev)
+
+    # The capacities scale with the tokens of a call (192 in the forward,
+    # 4 in a decode step), so where the forward drops an assignment the
+    # two differ by design. Decode is held to the forward at a capacity
+    # that drops nothing (cap_e >= T at E/k); the same tokens' forward at
+    # the config's capacity gives its drop share.
+    rng = np.random.default_rng(SEED)
+    prompts = rng.integers(0, cfg.vocab_size, (LM_BATCH, MOE_PROMPT))
+    zero_launches()
+    decode, toks = decode_against_forward(
+        dev, model, cfg.replace(capacity_factor=cfg.n_experts / cfg.top_k),
+        prompts, MOE_GEN, temperature=1.0)
+    assert decode["forward_dropped_share"] == 0, decode
+    record = []
+    with torch.no_grad(), moe_routes(record):
+        lm.forward_hidden(model, cfg, toks)
+    decode["forward_dropped_share_at_config"] = drop_share(record)
+    assert not any(ops.LAUNCHES.values()), ops.LAUNCHES
+    del model
+    empty_cache(dev)
+    return {"arch": MOE_ARCH, "layers": MOE_LAYERS, "params": n_params,
+            "expert_params": experts, "init_s": init_s,
+            "plane_build_s": plane_s, "plane_launches": plane_launches,
+            "dedup": dedup, "gate": gate, "probe": probe,
+            "step_s_first": steps[0]["s"],
+            "step_s_median_2_4": step_s, "tokens_per_step": tokens,
+            "tokens_per_s": tokens / step_s,
+            "dropped_share": drop_share(routed),
+            "capacity_slots_per_layer": cfg.n_experts * (int(
+                cfg.capacity_factor * tokens * cfg.top_k / cfg.n_experts)
+                + 8),
+            "assignments_per_layer": tokens * cfg.top_k,
+            "max_memory_allocated_train": peak_train, "steps": steps,
+            "decode": decode}, launches
+
+
+def kind_runs(dev) -> list[dict]:
+    """Phase 11 (b): recurrentgemma-2b, rwkv6-1.6b and whisper-small at
+    their published widths: one train step on seeded tokens, then greedy
+    decode against the forward; one more rwkv6 step under the profiler
+    (its kernel count)."""
+    import math
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import lm
+    from repro_torch.train.optim import OptConfig
+    from repro_torch.train.train_step import (TrainConfig, make_train_state,
+                                              make_train_step)
+    cuda = dev.type == "cuda"
+    out = []
+    for arch, layers, batch, seq in KIND_RUNS:
+        cfg = get_config(arch)
+        if layers:
+            cfg = cfg.replace(n_layers=layers)
+        if cuda:
+            torch.cuda.reset_peak_memory_stats(dev)
+        model = lm.lm_init(cfg, seed=0, device=dev)
+        tcfg = TrainConfig(opt=OptConfig(name=cfg.optimizer, lr=1e-4),
+                           schedule=cfg.lr_schedule, warmup=1, total_steps=4)
+        state = make_train_state(model, tcfg)
+        step = make_train_step(cfg, tcfg)
+        rng = np.random.default_rng(SEED)
+        data = {"tokens": rng.integers(0, cfg.vocab_size,
+                                       (batch, seq + 1)).astype(np.int32)}
+        enc = None
+        if cfg.is_encdec:
+            enc = (0.02 * rng.standard_normal(
+                (batch, cfg.enc_seq, cfg.d_model))).astype(np.float32)
+            data["enc_embeds"] = enc
+        zero_launches()
+        sync(dev)
+        t0 = time.perf_counter()
+        state, m = step(state, data)
+        sync(dev)
+        step_s = time.perf_counter() - t0
+        assert not any(ops.LAUNCHES.values()), ops.LAUNCHES
+        # one step from the seeded init: the tied embedding gives a token's
+        # own logit about sqrt(d_model) where no post-norm dilutes it (the
+        # reference's init gives the same loss), so no bound on its value
+        loss = float(m["loss"])
+        assert math.isfinite(loss) and math.isfinite(float(m["grad_norm"]))
+        traced = None
+        if cfg.pattern == ("w",):
+            held = {"state": state}
+
+            def one_step():
+                held["state"], _ = step(held["state"], data)
+            traced = trace_build(dev, f"{arch} train step", one_step)
+            del held
+        peak = torch.cuda.max_memory_allocated(dev) if cuda else None
+        del state, step
+        empty_cache(dev)
+        enc_out = None
+        if enc is not None:
+            with torch.no_grad():
+                enc_out = lm.encode(model, cfg, torch.from_numpy(enc).to(dev))
+        prompts = rng.integers(0, cfg.vocab_size, (batch, KIND_PROMPT))
+        decode, _ = decode_against_forward(dev, model, cfg, prompts,
+                                           KIND_GEN, enc_out=enc_out)
+        assert not any(ops.LAUNCHES.values()), ops.LAUNCHES
+        out.append({"arch": arch, "layers": cfg.n_layers,
+                    "encoder_layers": cfg.encoder_layers,
+                    "params": lm.param_count(model),
+                    "batch": batch, "tokens_per_step": batch * seq,
+                    "step_s_first": step_s, "loss": loss,
+                    "max_memory_allocated": peak, "train_step_trace": traced,
+                    "decode": decode})
+        del model, enc_out
+        empty_cache(dev)
+    return out
+
+
+def new_kinds_card_against_cpu(dev) -> dict:
+    """Phase 11 (c): each new config at smoke on the card against the CPU
+    path with the same params (one CPU generator)."""
+    import copy
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import lm
+    from repro_torch.models.layers import logits_from_embedding
+    out = {}
+    for arch in NEW_ARCHS:
+        cfg = get_config(arch).smoke()
+        host = lm.lm_init(cfg, generator=torch.Generator().manual_seed(SEED),
+                          device="cpu")
+        card = copy.deepcopy(host).to(dev)
+        rng = np.random.default_rng(SEED)
+        batch = {"tokens": torch.from_numpy(
+                     rng.integers(0, cfg.vocab_size, (2, 41))),
+                 "loss_mask": torch.from_numpy(
+                     (rng.random((2, 40)) > 0.3).astype(np.float32))}
+        if cfg.is_encdec:
+            batch["enc_embeds"] = torch.from_numpy((0.02 * rng.standard_normal(
+                (2, cfg.enc_seq, cfg.d_model))).astype(np.float32))
+        res = {}
+        with torch.no_grad():
+            for name, model, d in (("cpu", host, "cpu"), ("card", card, dev)):
+                b = {k: v.to(d) for k, v in batch.items()}
+                enc_out = (lm.encode(model, cfg, b["enc_embeds"])
+                           if cfg.is_encdec else None)
+                h, _, _ = lm.forward_hidden(model, cfg, b["tokens"][:, :-1],
+                                            enc_out=enc_out)
+                logits = logits_from_embedding(h, model.embed,
+                                               cfg.logit_softcap).cpu()
+                loss, _ = lm.lm_loss(model, cfg, b)
+                res[name] = (logits, float(loss))
+        rel = float((res["card"][0] - res["cpu"][0]).abs().max()
+                    / res["cpu"][0].abs().max())
+        out[arch] = {"logits_rel": rel,
+                     "loss": {k: v[1] for k, v in res.items()}}
+        assert rel < LM_REL, (arch, rel)
+        assert abs(res["card"][1] - res["cpu"][1]) < LM_LOSS_ABS, (arch, res)
+    return out
+
+
+def kinds_phase(dev) -> tuple[dict, dict]:
+    """Phase 11: (a)-(c) in this process; returns the {"lm_kinds": ...}
+    record and the phase's kernel launches."""
+    t_phase = time.perf_counter()
+    cuda = dev.type == "cuda"
+    if cuda:
+        sync(dev)               # initialises CUDA when this phase runs first
+    moe, launches = moe_train(dev)
+    kinds = kind_runs(dev)
+    parity = new_kinds_card_against_cpu(dev)
+    return {"card": card_line() if cuda else "cpu", "moe": moe,
+            "kinds": kinds, "card_against_cpu": parity,
+            "phase_s": time.perf_counter() - t_phase}, launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2021,6 +2392,9 @@ def main() -> int:
     empty_cache(dev)
     lm, lm_launches = lm_phase(dev)
     log(json.dumps({"lm": lm}))
+    empty_cache(dev)
+    kinds, kinds_launches = kinds_phase(dev)
+    log(json.dumps({"lm_kinds": kinds}))
     for entry in table:
         names = ("bitonic_tile", "bitonic_cross") \
             if entry["name"] == "bitonic_sort" else \
@@ -2031,6 +2405,7 @@ def main() -> int:
         entry["launches_data_plane"] = sum(plane["launches"].get(k, 0)
                                            for k in names)
         entry["launches_lm"] = sum(lm_launches.get(k, 0) for k in names)
+        entry["launches_moe"] = sum(kinds_launches.get(k, 0) for k in names)
     print(json.dumps({"kernels": table}))
     print(card)
     print(json.dumps({"ok": True, "device": {

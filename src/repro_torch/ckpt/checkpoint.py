@@ -58,7 +58,11 @@ def _path_str(path) -> str:
 
 def _to_host(leaf) -> np.ndarray:
     if isinstance(leaf, torch.Tensor):
-        return leaf.detach().cpu().numpy()
+        leaf = leaf.detach()
+        # a copy on the CPU too: the train step writes its state in place
+        # while an asynchronous write may still be reading the tree
+        return leaf.numpy().copy() if leaf.device.type == "cpu" \
+            else leaf.cpu().numpy()
     return np.asarray(leaf)
 
 

@@ -1,10 +1,7 @@
 """Launch configurations: ``--arch <id>`` resolves here.
 
-The port of `repro.configs`. The paper's own workload, ``suffix-array``
-(`SAConfig`), and the five decoder-only attention architectures of
-`PORTED_ARCHS` are ported. The other five model architectures of the JAX
-package (MoE, RG-LRU, RWKV6, encoder-decoder) are not yet (ROADMAP queue
-1, item 2b) and raise `NotImplementedError`.
+The port of `repro.configs`: the paper's own workload, ``suffix-array``
+(`SAConfig`), and the ten model architectures of the JAX package.
 """
 from __future__ import annotations
 
@@ -19,10 +16,8 @@ MODEL_ARCHS = (
     "rwkv6_1_6b", "chameleon_34b", "whisper_small",
 )
 
-#: the model architectures the port runs: global and sliding-window
-#: attention with the dense gated MLP.
-PORTED_ARCHS = ("minicpm_2b", "gemma2_27b", "gemma3_27b", "gemma3_1b",
-                "chameleon_34b")
+#: the model architectures the port runs: all of them.
+PORTED_ARCHS = MODEL_ARCHS
 
 _ALIASES = {
     "minicpm-2b": "minicpm_2b",
@@ -40,18 +35,13 @@ _ALIASES = {
 
 def get_config(arch: str):
     """The configuration of ``--arch arch``: `SAConfig` for
-    ``suffix-array``, a `ModelConfig` for a ported model architecture; an
-    architecture still to port raises `NotImplementedError`, an unknown
-    one `ValueError`."""
+    ``suffix-array``, a `ModelConfig` for a model architecture; an
+    unknown one raises `ValueError`."""
     key = _ALIASES.get(arch, arch).replace("-", "_").replace(".", "_")
     if key == "suffix_array":
         return SUFFIX_ARRAY
-    if key in PORTED_ARCHS:
-        return import_module(f"{__name__}.{key}").CONFIG
     if key in MODEL_ARCHS:
-        raise NotImplementedError(
-            f"--arch {arch}: the MoE, RG-LRU, RWKV6 and encoder-decoder "
-            f"architectures are not ported yet (ROADMAP queue 1, item 2b)")
+        return import_module(f"{__name__}.{key}").CONFIG
     raise ValueError(f"unknown --arch {arch!r}; expected suffix-array or "
                      f"one of {sorted(_ALIASES)}")
 

@@ -18,17 +18,17 @@ pass excluded. `--segments K` serves a `SegmentedIndex` of K segments
 (persisted through a `SegmentedIndexStore`) and `--ingest M` streams M
 documents through `add_docs` after the build.
 
-The LM half (``--arch <model>``, one of the ported decoder-only
-attention architectures): `prefill_then_decode` of a seeded prompt batch
-through a freshly initialised model, greedy (or sampled with
-``--temperature > 0`` from a seeded `torch.Generator`).
+The LM half (``--arch <model>``, any of the ten model architectures):
+`prefill_then_decode` of a seeded prompt batch through a freshly
+initialised model, greedy (or sampled with ``--temperature > 0`` from a
+seeded `torch.Generator`); for an encoder-decoder config the decoder
+attends to the encoding of seeded frame embeddings.
 
     python -m repro_torch.launch.serve --arch gemma3-1b --batch 4 \\
         --prompt-len 16 --gen 32
 
 The JAX package's mesh/BSP route (a 1-D mesh when several devices are
-visible) has no counterpart yet (ROADMAP queue 1, item 3), and a model
-architecture still to port raises `NotImplementedError` (item 2b).
+visible) has no counterpart yet (ROADMAP queue 1, item 3).
 """
 from __future__ import annotations
 
@@ -42,18 +42,19 @@ import torch
 
 from ..configs import get_config
 from ..core.compat import resolve_device
-from ..models.lm import decode_step, init_decode_states, lm_init
+from ..models.lm import decode_step, encode, init_decode_states, lm_init
 
 
 @torch.no_grad()
-def prefill_then_decode(params, cfg, prompts, gen: int, *,
+def prefill_then_decode(params, cfg, prompts, gen: int, *, enc_out=None,
                         temperature: float = 0.0, seed: int = 0):
     """prompts integer [B, P] (numpy or tensor) → tokens int32 [B, P+gen] on
     the model's device. `params` is an `repro_torch.models.lm.LM`. Prefill
     runs stepwise through the decode path (correct for ring buffers), as
     in the JAX package. Greedy at ``temperature=0``; otherwise sampled
     from a `torch.Generator` seeded with `seed` (not the JAX package's
-    random stream)."""
+    random stream). `enc_out` is an encoder-decoder's `encode` output,
+    which every step's cross-attention reads."""
     dev = params.device
     prompts = torch.as_tensor(np.asarray(prompts) if not torch.is_tensor(
         prompts) else prompts).to(dev, torch.int32)
@@ -63,7 +64,8 @@ def prefill_then_decode(params, cfg, prompts, gen: int, *,
     out = [prompts[:, i:i + 1] for i in range(P)]
     logits = None
     for t in range(P):
-        logits, states = decode_step(params, cfg, out[t], states, t)
+        logits, states = decode_step(params, cfg, out[t], states, t,
+                                     enc_out=enc_out)
     for g in range(gen):
         if temperature > 0:
             probs = torch.softmax(logits[:, 0] / temperature, dim=-1)
@@ -71,7 +73,8 @@ def prefill_then_decode(params, cfg, prompts, gen: int, *,
         else:
             nxt = torch.argmax(logits[:, 0], dim=-1)[:, None]
         out.append(nxt.to(torch.int32))
-        logits, states = decode_step(params, cfg, out[-1], states, P + g)
+        logits, states = decode_step(params, cfg, out[-1], states, P + g,
+                                     enc_out=enc_out)
     return torch.cat(out, dim=1)
 
 
@@ -83,9 +86,15 @@ def serve_lm(cfg, *, batch: int, prompt_len: int, gen: int,
     params = lm_init(cfg, seed=0, device=dev)
     rng = np.random.default_rng(0)
     prompts = rng.integers(0, cfg.vocab_size, (batch, prompt_len))
+    enc_out = None
+    if cfg.is_encdec:
+        enc = 0.02 * rng.standard_normal(
+            (batch, cfg.enc_seq, cfg.d_model)).astype(np.float32)
+        with torch.no_grad():
+            enc_out = encode(params, cfg, torch.from_numpy(enc).to(dev))
     _sync(dev)
     t0 = time.time()
-    toks = prefill_then_decode(params, cfg, prompts, gen,
+    toks = prefill_then_decode(params, cfg, prompts, gen, enc_out=enc_out,
                                temperature=temperature)
     _sync(dev)
     dt = time.time() - t0

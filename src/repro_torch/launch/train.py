@@ -102,7 +102,8 @@ def _sync(dev: torch.device) -> None:
         torch.cuda.synchronize(dev)
 
 
-def main(argv=None):
+def parser() -> argparse.ArgumentParser:
+    """The launcher's command line (`main` parses it)."""
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True)
     ap.add_argument("--smoke", action="store_true")
@@ -139,7 +140,11 @@ def main(argv=None):
     ap.add_argument("--probe-samples", type=int, default=4)
     ap.add_argument("--probe-len", type=int, default=64)
     ap.add_argument("--probe-prompt", type=int, default=16)
-    args = ap.parse_args(argv)
+    return ap
+
+
+def main(argv=None):
+    args = parser().parse_args(argv)
 
     dev = resolve_device(args.device)
     cfg = get_config(args.arch)
@@ -177,6 +182,10 @@ def main(argv=None):
     for i in range(start, args.steps):
         t_step = time.perf_counter()
         batch = plane.batch_at(i)
+        if cfg.is_encdec:
+            rng = np.random.default_rng(i)
+            batch["enc_embeds"] = 0.02 * rng.standard_normal(
+                (args.batch, cfg.enc_seq, cfg.d_model)).astype(np.float32)
         if args.microbatches > 1:
             B = args.batch // args.microbatches
             batch = {k: v.reshape((args.microbatches, B) + v.shape[1:])
@@ -229,8 +238,9 @@ def main(argv=None):
 def run_probe(plane: TrainingDataPlane, params, cfg, args, *,
               step: int) -> dict:
     """Decode --probe-samples continuations from corpus prompts and score
-    them against the training index (memorization probe)."""
-    if plane.index is None:
+    them against the training index (memorization probe); none for an
+    encoder-decoder config, as in the JAX package."""
+    if cfg.is_encdec or plane.index is None:
         return {}
     from .serve import prefill_then_decode
     corpus, P = plane.corpus, args.probe_prompt

@@ -1,3 +1,3 @@
-"""The decoder-only attention LM: the port of `repro.models` for the
-global ("g") and sliding-window ("l") attention kinds with the dense
-gated MLP."""
+"""The LM stack: the port of `repro.models` for all ten model
+architectures (attention, MoE, RG-LRU, RWKV6 and the Whisper
+encoder-decoder)."""

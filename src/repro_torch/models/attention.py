@@ -187,7 +187,8 @@ def update_cache(cache_k, cache_v, k_new, v_new, cur_pos: int):
 def _param(shape, *, scale: float = 0.02, init: str = "normal",
            device=None, dtype=torch.float32) -> nn.Parameter:
     """An uninitialised parameter that carries its init rule
-    (`repro.models.sharding.ParamCollector`'s: normal × scale, or zeros);
+    (`repro.models.sharding.ParamCollector`'s: normal × scale, zeros or
+    ones);
     `repro_torch.models.lm.reset_parameters` draws it."""
     p = nn.Parameter(torch.empty(tuple(shape), device=device, dtype=dtype))
     p.init_rule = (init, scale)
@@ -215,19 +216,25 @@ def init_attention(mod: nn.Module, cfg, device=None) -> None:
 
 
 def attention_layer(p, cfg, x, *, is_local: bool, positions=None,
-                    cache=None, cur_pos=None, causal: bool = True):
+                    cache=None, cur_pos=None, kv_override=None,
+                    causal: bool = True):
     """x [B, S, d] bf16. Returns (out [B, S, d], new_cache).
 
     cache: None (training/prefill) or dict(k, v) ring buffers (decode, S=1),
-    written in place."""
+    written in place. kv_override: (k, v) [B, T, Hk, hd] for
+    cross-attention (the encoder's, `lm._cross_kv`): no k/v projection and
+    no RoPE."""
     B, S, _ = x.shape
     window = cfg.window if is_local else None
     rope_base = (cfg.rope_base_local if (is_local and cfg.rope_base_local)
                  else cfg.rope_base)
 
     q = torch.einsum("bsd,dhk->bshk", x, p.wq.to(x.dtype))
-    k = torch.einsum("bsd,dhk->bshk", x, p.wk.to(x.dtype))
-    v = torch.einsum("bsd,dhk->bshk", x, p.wv.to(x.dtype))
+    if kv_override is None:
+        k = torch.einsum("bsd,dhk->bshk", x, p.wk.to(x.dtype))
+        v = torch.einsum("bsd,dhk->bshk", x, p.wv.to(x.dtype))
+    else:
+        k, v = kv_override
 
     if cfg.qk_norm:
         q = rms_norm(q, p.q_norm, cfg.norm_eps)
@@ -237,7 +244,7 @@ def attention_layer(p, cfg, x, *, is_local: bool, positions=None,
         positions = (torch.arange(S, device=x.device)[None, :]
                      if cur_pos is None
                      else torch.full((B, S), cur_pos, device=x.device))
-    if rope_base:
+    if kv_override is None and rope_base:
         q = apply_rope(q, positions, rope_base)
         k = apply_rope(k, positions, rope_base)
 
@@ -247,6 +254,9 @@ def attention_layer(p, cfg, x, *, is_local: bool, positions=None,
         new_cache = {"k": ck, "v": cv}
         out = decode_attention(q, ck, cv, cur_pos, window=window,
                                attn_softcap=cfg.attn_softcap)
+    elif kv_override is not None:
+        out = flash_attention(q, k, v, causal=False, window=None,
+                              attn_softcap=cfg.attn_softcap)
     else:
         out = flash_attention(q, k, v, causal=causal, window=window,
                               attn_softcap=cfg.attn_softcap)

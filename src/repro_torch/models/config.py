@@ -1,8 +1,6 @@
 """Model configuration dataclass shared by all 10 assigned architectures.
 
-The port of `repro.models.config`, copied: plain dataclasses. The port
-runs the decoder-only attention kinds ("g", "l") with the dense MLP; the
-others raise `NotImplementedError` in `repro_torch.models.lm`.
+The port of `repro.models.config`, copied: plain dataclasses.
 """
 from __future__ import annotations
 

@@ -48,6 +48,13 @@ def bf16_product_f32(equation: str, *operands):
                                     for t in operands))
 
 
+def product_f32(equation: str, x, w):
+    """The JAX package's ``einsum(x, w.astype(x.dtype),
+    preferred_element_type=float32)``: `w` rounded to x's type, both
+    operands' products summed in float32."""
+    return torch.einsum(equation, x.float(), w.to(x.dtype).float())
+
+
 # --------------------------------------------------------------------------
 # RoPE
 # --------------------------------------------------------------------------
@@ -128,4 +135,4 @@ def chunked_softmax_xent(x, table, targets, mask=None, *, chunk: int = 512,
 
 __all__ = ["COMPUTE_DTYPE", "activation", "apply_rope", "bf16_product_f32",
            "chunked_softmax_xent", "embed", "logits_from_embedding",
-           "rms_norm", "rope_freqs", "softcap"]
+           "product_f32", "rms_norm", "rope_freqs", "softcap"]

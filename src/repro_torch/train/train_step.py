@@ -1,22 +1,33 @@
-"""Train step builder: loss → grads → clip → (optional int8
-error-feedback compression) → optimizer → new state, with microbatch
-gradient accumulation.
+"""Train step builder: loss → grads (with remat policy) → clip →
+(optional int8 error-feedback compression) → optimizer → new state, with
+microbatch gradient accumulation.
 
 The port of `repro.train.train_step`. A train state is ``{"params": LM,
 "opt": optimizer state, ["ef_error": tree]}``; the optimizer's trees are
-flat dicts keyed by the LM's parameter names. The step computes new
-parameters as the JAX package does (new tensors from the optimizer
-functions) and then writes them into the LM's parameters in place, so the
-LM passed to `make_train_state` is the one that trains. `state_tree` and
-`load_state_tree` give the checkpointable tree of a state and put one
-back onto the state's device.
+flat dicts keyed by the LM's parameter names. The step applies the
+optimizer's update function (which returns new tensors, as the JAX
+package's does) one parameter at a time and writes each result into the
+LM's parameter and the state's tensors in place, so the LM passed to
+`make_train_state` is the one that trains and the update holds one
+leaf's new tensors at a time, not a second copy of every tree.
+`state_tree` and `load_state_tree` give the checkpointable tree of a
+state and put one back onto the state's device.
+
+Remat (`TrainConfig.remat`) is a memory policy with the same values:
+"full" wraps the whole loss in `torch.utils.checkpoint` (the backward
+recomputes everything), "save_dots" in a selective checkpoint that keeps
+the outputs of the matrix products (``mm``, ``bmm``, ``addmm``) and
+recomputes the rest, the counterpart of ``checkpoint_dots``.
 """
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass, field
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import (checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from ..models.lm import lm_loss
 from .optim import (OptConfig, clip_by_global_norm,
@@ -32,17 +43,29 @@ class TrainConfig:
     warmup: int = 100
     total_steps: int = 10_000
     microbatches: int = 1        # grad accumulation
-    remat: str = "none"          # none (full | save_dots: ROADMAP item 2b)
+    remat: str = "none"          # none | full | save_dots
+
+#: the ops whose outputs "save_dots" keeps.
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+         torch.ops.aten.addmm.default)
 
 
 def make_loss_fn(cfg, remat: str = "none"):
-    if remat != "none":
-        raise NotImplementedError(
-            f"remat={remat!r} is not ported yet (ROADMAP queue 1, item 2b)")
-
     def loss_fn(params, batch):
         return lm_loss(params, cfg, batch)
-    return loss_fn
+    if remat == "none":
+        return loss_fn
+    if remat == "full":
+        kw = {}
+    elif remat == "save_dots":
+        kw = {"context_fn": functools.partial(
+            create_selective_checkpoint_contexts, list(_DOTS))}
+    else:
+        raise ValueError(f"unknown remat {remat!r}")
+
+    def remat_loss_fn(params, batch):
+        return checkpoint(loss_fn, params, batch, use_reentrant=False, **kw)
+    return remat_loss_fn
 
 
 def _named(model) -> dict:
@@ -137,12 +160,22 @@ def make_train_step(cfg, tcfg: TrainConfig):
             grads, new_err = compressed_grads_with_feedback(
                 grads, state["ef_error"])
         lr = sched(state["opt"]["step"])
-        params = {k: p.detach() for k, p in _named(model).items()}
-        new_params, new_opt = opt_update(params, grads, state["opt"], lr=lr)
+        opt = state["opt"]
+        step = None
         with torch.no_grad():
-            for k, p in params.items():
-                p.copy_(new_params[k])
-        new_state = {"opt": new_opt, "params": model}
+            for k, p in _named(model).items():
+                p = p.detach()
+                leaf = {key: tree if key == "step" else {k: tree[k]}
+                        for key, tree in opt.items()}
+                new_p, new_leaf = opt_update({k: p}, {k: grads.pop(k)},
+                                             leaf, lr=lr)
+                p.copy_(new_p[k])
+                for key, tree in new_leaf.items():
+                    if key != "step":
+                        tree_map(lambda dst, src: dst.copy_(src),
+                                 opt[key][k], tree[k])
+                step = new_leaf["step"]
+        new_state = {"opt": dict(opt, step=step), "params": model}
         if tcfg.opt.compress:
             new_state["ef_error"] = new_err
         metrics = dict(metrics, loss=loss, grad_norm=gnorm, lr=lr)

@@ -490,3 +490,77 @@ def test_lm_decode_matches_forward_past_the_window_on_the_card(cuda):
             lg, states = lm.decode_step(card, cfg, toks[:, t:t + 1], states,
                                         t)
             assert float((lg[:, 0] - full[:, t]).abs().max()) / scale < 0.05
+
+
+def _module_pair(cuda, Mod, cfg, seed=0):
+    """One parameter module of `Mod` drawn on the CPU, and its copy on
+    the card."""
+    import copy
+    from repro_torch.models.lm import reset_parameters
+    host = Mod(cfg, device="cpu")
+    reset_parameters(host, torch.Generator().manual_seed(seed))
+    return host, copy.deepcopy(host).to(cuda)
+
+
+def test_moe_layer_on_the_card_matches_the_cpu(cuda):
+    """phi3.5-moe's MoE at smoke widths: from the same router logits the
+    card routes exactly as the CPU (ids, slots, keep flags); the layer's
+    output within 0.05 of the largest, its aux loss within 1e-5 relative
+    and its gradients within 0.05; no hand kernel launches."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import ffn
+    cfg = get_config("phi35_moe_42b_a6_6b").smoke()
+    host, card = _module_pair(cuda, ffn.MoE, cfg)
+    x = torch.randn(2, 40, cfg.d_model, generator=torch.Generator(
+        ).manual_seed(1)).to(torch.bfloat16)
+    logits = torch.randn(80, cfg.n_experts,
+                         generator=torch.Generator().manual_seed(2))
+    want, got = ffn.moe_route(logits, cfg), ffn.moe_route(logits.to(cuda),
+                                                          cfg)
+    for key in ("ids", "slot", "keep", "eid", "eslot", "ekeep"):
+        torch.testing.assert_close(getattr(got, key).cpu(),
+                                   getattr(want, key), rtol=0, atol=0)
+    before = dict(ops.LAUNCHES)
+    res = {}
+    for name, mod, dev in (("cpu", host, "cpu"), ("card", card, cuda)):
+        out, aux = ffn.moe_layer(mod, cfg, x.to(dev))
+        (torch.sum(torch.square(out.float())) + aux).backward()
+        res[name] = (out.detach().float().cpu(), float(aux.detach()),
+                     {n: p.grad.cpu() for n, p in mod.named_parameters()})
+    assert ops.LAUNCHES == before
+    (o_w, a_w, g_w), (o_g, a_g, g_g) = res["cpu"], res["card"]
+    assert float((o_g - o_w).abs().max() / o_w.abs().max()) < 0.05
+    assert abs(a_g / a_w - 1) < 1e-5
+    for n, g in g_w.items():
+        assert float((g_g[n] - g).abs().max() / g.abs().max()) < 0.05, n
+
+
+def test_rwkv6_step_on_the_card_matches_the_cpu(cuda):
+    """rwkv6-1.6b's time-mix and channel-mix at smoke widths: a 16-token
+    chunk, then one decode step from the carried state, on the card
+    against the CPU: outputs within 0.05 of the largest, the states
+    within 1e-2 (float32 fed by bf16)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import rwkv6
+    cfg = get_config("rwkv6_1_6b").smoke()
+    g = torch.Generator().manual_seed(3)
+    x = (0.5 * torch.randn(2, 17, cfg.d_model, generator=g)).to(
+        torch.bfloat16)
+    for Mod, fn, seed in ((rwkv6.TimeMix, rwkv6.rwkv_time_mix, 4),
+                          (rwkv6.ChannelMix, rwkv6.rwkv_channel_mix, 5)):
+        host, card = _module_pair(cuda, Mod, cfg, seed)
+        with torch.no_grad():
+            for p in (*host.parameters(), *card.parameters()):
+                if not p.any():             # the zero-init mixes and bases
+                    p.fill_(0.3)
+        res = {}
+        with torch.no_grad():
+            for name, mod, dev in (("cpu", host, "cpu"), ("card", card, cuda)):
+                first, st = fn(mod, cfg, x[:, :16].to(dev))
+                step, st = fn(mod, cfg, x[:, 16:].to(dev), state=st)
+                res[name] = [first.float().cpu(), step.float().cpu(),
+                             *(v.float().cpu() for v in st.values())]
+        for i, (w, c) in enumerate(zip(res["cpu"], res["card"])):
+            tol = 0.05 if i < 2 else 1e-2
+            assert float((c - w).abs().max() / w.abs().max()) < tol, \
+                (Mod.__name__, i)

@@ -101,6 +101,30 @@ def test_decode_logits_match_forward_past_the_window(case):
             assert err / scale < REL, (t, err, scale)
 
 
+@pytest.mark.parametrize("arch", ["recurrentgemma_2b", "rwkv6_1_6b",
+                                  "kimi_k2_1t_a32b", "whisper_small"])
+def test_decode_matches_prefill_beyond_attention(arch):
+    cfg = get_config(arch).smoke()
+    model = lm.lm_init(cfg, seed=0, device=CPU)
+    Bd, S = 2, 10
+    rng = np.random.default_rng(0)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (Bd, S)))
+    enc_out = None
+    with torch.no_grad():
+        if cfg.is_encdec:
+            enc = 0.02 * rng.standard_normal((Bd, cfg.enc_seq, cfg.d_model))
+            enc_out = lm.encode(model, cfg, torch.from_numpy(enc).float())
+        h, _, _ = lm.forward_hidden(model, cfg, toks, enc_out=enc_out)
+        full = logits_from_embedding(h, model.embed, cfg.logit_softcap)
+        scale = float(full.abs().max())
+        states = lm.init_decode_states(cfg, Bd, cache_len=S, device=CPU)
+        for t in range(S):
+            lg, states = lm.decode_step(model, cfg, toks[:, t:t + 1], states,
+                                        t, enc_out=enc_out)
+            err = float((lg[:, 0] - full[:, t]).abs().max())
+            assert err / scale < REL, (arch, t, err, scale)
+
+
 def test_sampling_is_seeded(case):
     _, cfg, _, model, prompts = case
     a = serve.prefill_then_decode(model, cfg, prompts, 6, temperature=1.0,
@@ -118,8 +142,11 @@ def test_serve_cli_lm_branch(capsys):
     assert toks.shape == (2, 25) and toks.device.type == "cpu"
     out = capsys.readouterr().out
     assert "generated 40 tokens" in out and "sample:" in out
-    with pytest.raises(NotImplementedError, match="item 2b"):
-        serve.main(["--arch", "rwkv6-1.6b", "--smoke", "--device", "cpu"])
+    # the recurrent kinds serve too (item 2b is done)
+    toks = serve.main(["--arch", "rwkv6-1.6b", "--smoke", "--device", "cpu",
+                       "--batch", "2", "--prompt-len", "4", "--gen", "6"])
+    assert toks.shape == (2, 10)
+    assert "generated 12 tokens" in capsys.readouterr().out
 
 
 def test_serve_cli_lm_branch_needs_a_card_unless_told_cpu():

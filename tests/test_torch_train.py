@@ -44,8 +44,8 @@ from repro_torch.models import lm
 from repro_torch.models.convert import params_from_jax, params_to_jax
 from repro_torch.train import optim, schedule
 from repro_torch.train.train_step import (TrainConfig, load_state_tree,
-                                          make_train_state, make_train_step,
-                                          state_tree)
+                                          make_loss_fn, make_train_state,
+                                          make_train_step, state_tree)
 
 CPU = "cpu"
 REL = 0.05
@@ -134,13 +134,12 @@ def test_train_step_matches_jax(microbatches):
         assert float(np.max(np.abs(a - np.asarray(b)))) <= 2.1 * lr
 
 
-def test_gradient_tree_matches_jax():
-    jcfg, cfg, jparams, params_np = minicpm(seed=1)
-    rng = np.random.default_rng(1)
+def _gradient_trees_match(jcfg, cfg, jparams, params_np, seed):
+    rng = np.random.default_rng(seed)
     toks = rng.integers(0, cfg.vocab_size, (2, 25)).astype(np.int32)
     mask = (rng.random((2, 24)) > 0.3).astype(np.float32)
-    jgrads = jax.grad(lambda p: jlm.lm_loss(p, jcfg, {
-        "tokens": jnp.asarray(toks), "loss_mask": jnp.asarray(mask)})[0])(
+    jgrads = jax.jit(jax.grad(lambda p: jlm.lm_loss(p, jcfg, {
+        "tokens": jnp.asarray(toks), "loss_mask": jnp.asarray(mask)})[0]))(
             jparams)
     model = params_from_jax(params_np, cfg, device=CPU)
     loss, _ = lm.lm_loss(model, cfg, {"tokens": t(toks),
@@ -155,6 +154,62 @@ def test_gradient_tree_matches_jax():
         g = np.asarray(g, np.float64)
         err = np.max(np.abs(flat_o[path] - g)) / np.max(np.abs(g))
         assert err < REL, (path, err)
+
+
+def test_gradient_tree_matches_jax():
+    _gradient_trees_match(*minicpm(seed=1), seed=1)
+
+
+@pytest.mark.parametrize("arch", ["phi35_moe_42b_a6_6b", "recurrentgemma_2b",
+                                  "rwkv6_1_6b"])
+def test_gradient_tree_of_the_other_kinds_matches_jax(arch):
+    """The MoE (router, experts), the RG-LRU block and RWKV6's time-mix
+    and channel-mix, each leaf's gradient within 0.05 of the
+    reference's largest."""
+    jcfg = jconfigs.get_config(arch).smoke()
+    cfg = get_config(arch).smoke()
+    jparams, _ = jlm.lm_init(jax.random.PRNGKey(2), jcfg)
+    _gradient_trees_match(jcfg, cfg, jparams,
+                          jax.tree_util.tree_map(np.asarray, jparams), seed=2)
+
+
+#: (architecture, where remat is asked for): the config's per-period
+#: remat, or `TrainConfig.remat` around the whole loss.
+REMATS = [("recurrentgemma_2b", "cfg:full"), ("kimi_k2_1t_a32b", "cfg:full"),
+          ("phi35_moe_42b_a6_6b", "full"), ("rwkv6_1_6b", "save_dots"),
+          ("whisper_small", "save_dots")]
+
+
+@pytest.mark.parametrize("arch,remat", REMATS)
+def test_remat_keeps_the_loss_and_gradients(arch, remat):
+    """Remat is a memory policy: the loss and every gradient equal the
+    run without it (float32, 1e-6 relative), and the forward keeps fewer
+    tensors for the backward."""
+    cfg = get_config(arch).smoke().replace(remat="none")
+    model = lm.lm_init(cfg, seed=3, device=CPU)
+    rng = np.random.default_rng(3)
+    batch = {"tokens": t(rng.integers(0, cfg.vocab_size, (2, 17)))}
+    if cfg.is_encdec:
+        batch["enc_embeds"] = t((0.02 * rng.standard_normal(
+            (2, cfg.enc_seq, cfg.d_model))).astype(np.float32))
+    names, leaves = zip(*model.named_parameters())
+
+    def run(cfg_, tremat):
+        saved = []
+        with torch.autograd.graph.saved_tensors_hooks(
+                lambda x: saved.append(x.numel()) or x, lambda x: x):
+            loss, _ = make_loss_fn(cfg_, remat=tremat)(model, batch)
+        return loss, torch.autograd.grad(loss, leaves), sum(saved)
+
+    base_loss, base_grads, base_saved = run(cfg, "none")
+    if remat.startswith("cfg:"):
+        loss, grads, saved = run(cfg.replace(remat="full"), "none")
+    else:
+        loss, grads, saved = run(cfg, remat)
+    close_f32(loss, base_loss.detach().numpy())
+    for name, g, want in zip(names, grads, base_grads):
+        close_f32(g.float(), want.float().numpy())
+    assert saved < base_saved, (saved, base_saved)
 
 
 def test_step_zero_has_lr_zero():
