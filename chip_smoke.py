@@ -139,8 +139,28 @@ Phases (any failure exits non-zero; no phase's exception is caught):
    of token-expert assignments the capacities dropped, each step's, the
    decode errors and the phase's wall time.
 
-Standard output ends with a JSON line of per-kernel numbers, the card's
-name and power limit, and ``{"ok": true, "device": {...}}``.
+12. Algorithm 3 on the card (run right after phase 9: it reuses phase
+   3's index and phase 4's patterns, which are freed before phase 10):
+   (a) `SuffixArrayIndex.from_docs` of the phase-3 corpus with
+   ``SAOptions(mesh=make_sa_mesh(8, device="cuda"), sort_impl="auto")``,
+   8 ranks sharing the card: its SA must equal the dense SA, its
+   `count_batch` of the phase-4 patterns the dense counts, its launches
+   exactly `radix_hist` + `radix_scatter`, the mesh's rendezvous the
+   supersteps less the base gathers, and every round 11 SM1 and 9 SM2
+   supersteps; a cold and a warm build with each SM stage's host-clock
+   seconds per level, the `BSPCounters` beside `estimate_costs`, rank 0's
+   level-0 local sort on the radix kernels against their plain versions
+   (and beside the `torch.sort` key sort), one warm build under
+   `torch.profiler`; (b) at 2^20 tokens of the same generator,
+   ``sort_impl="torch"`` and ``"bitonic"`` at p = 8 and ``"radix"`` at
+   p = 3 must each equal the single-device SA; (c) the legacy
+   single-device ``sort_impl="bitonic"`` too. Prints a ``{"bsp": ...}``
+   line with the phase's wall time.
+
+Standard output ends with a JSON line of per-kernel numbers (each with
+its launches on every path, ``launches_bsp`` for phase 12 (a)'s cold
+build), the card's name and power limit, and ``{"ok": true, "device":
+{...}}``.
 """
 from __future__ import annotations
 
@@ -252,10 +272,18 @@ KIND_GEN = 16
 NEW_ARCHS = ("kimi-k2-1t-a32b", "phi3.5-moe-42b-a6.6b", "recurrentgemma-2b",
              "rwkv6-1.6b", "whisper-small")
 
+#: phase 12: Algorithm 3 on a mesh of BSP_P ranks sharing the card; (b)
+#: and (c) at 2^20 tokens (256 documents of 4,095 tokens and their
+#: separators) of phase 3's generator.
+BSP_P = 8
+BSP_DOCS, BSP_DOC_LEN = 256, 4095
+BSP_OTHER = (("torch", 8), ("bitonic", 8), ("radix", 3))
+
 #: kernels each path must launch, and no others.
 PATH_KERNELS = {"kernel": {"bitonic_tile", "bitonic_cross", "seg_boundary"},
                 "radix": {"radix_hist", "radix_scatter"},
-                "sparse": {"radix_hist", "radix_scatter"}}
+                "sparse": {"radix_hist", "radix_scatter"},
+                "bsp": {"radix_hist", "radix_scatter"}}
 #: every kernel the builds of phase 8 must launch between them.
 SERVING_KERNELS = PATH_KERNELS["radix"] | PATH_KERNELS["sparse"]
 
@@ -2349,6 +2377,168 @@ def kinds_phase(dev) -> tuple[dict, dict]:
             "phase_s": time.perf_counter() - t_phase}, launches
 
 
+# -------------------------------------------------------------- phase 12
+def stage_clock(record: list):
+    """Patches of `repro_torch.bsp.suffix_array`'s stage wrappers (`_sm1`,
+    `_sm2`) and of its base case that append each call's host-clock
+    seconds (synchronised at both ends) with the level's v and n_loc."""
+    from contextlib import ExitStack
+    from repro_torch.bsp import suffix_array as bsa
+    stack = ExitStack()
+
+    def clocked(name, fn):
+        def run(*args, **kw):
+            dev = args[0].devices[0] if name != "base" else kw["device"]
+            sync(dev)
+            t0 = time.perf_counter()
+            out = fn(*args, **kw)
+            sync(dev)
+            record.append({"stage": name, "v": kw.get("v"),
+                           "n_loc": (len(args[0]) if name == "base"
+                                     else kw["n_loc"]),
+                           "s": time.perf_counter() - t0})
+            return out
+        return run
+    for name, attr in (("SM1", "_sm1"), ("SM2", "_sm2"),
+                       ("base", "suffix_array_torch")):
+        stack.enter_context(mock.patch.object(
+            bsa, attr, clocked(name, getattr(bsa, attr))))
+    return stack
+
+
+def first_local_sort(record: list):
+    """A patch of SM1's key-mode local sort that keeps a copy of the rows
+    of its first call (rank 0, level 0: the main path's shape)."""
+    from repro_torch.bsp import suffix_array as bsa
+    sort = bsa.local_sort_lex
+
+    def recorded(rows, key_sort="radix"):
+        if not record:
+            record.append(rows.clone())
+        return sort(rows, key_sort)
+    return mock.patch.object(bsa, "local_sort_lex", recorded)
+
+
+def bsp_local_sort_check(dev, rows) -> dict:
+    """The radix kernels on the card at the main path's local-sort shape
+    (rank 0's level-0 SM1 rows) against their plain versions, and timed
+    beside the plain versions and the `torch.sort` key sort."""
+    from repro_torch.bsp import psort
+    from repro_torch.kernels import ref
+    cols = range(rows.shape[1])
+    zero_launches()
+    got = psort.argsort_rows(rows, cols, "radix")
+    with mock.patch.object(psort, "radix_argsort", ref.radix_argsort_ref):
+        err = require_equal("bsp level-0 local sort", got,
+                            psort.argsort_rows(rows, cols, "radix"))
+        plain_ms = time_ms(lambda: psort.argsort_rows(rows, cols, "radix"),
+                           dev)
+    return {"rows": list(rows.shape), "max_abs_err": err,
+            "ms": time_ms(lambda: psort.argsort_rows(rows, cols, "radix"),
+                          dev, reps=5),
+            "plain_ms": plain_ms,
+            "torch_sort_ms": time_ms(
+                lambda: psort.argsort_rows(rows, cols, "torch"), dev,
+                reps=5)}
+
+
+def bsp_phase(dev, idx, docs, pats, counts) -> tuple[dict, dict]:
+    """Phase 12: Algorithm 3 on a mesh of BSP_P ranks on the card. Returns
+    the {"bsp": ...} record and the launches of (a)'s cold build."""
+    from contextlib import ExitStack
+    import torch
+    from repro_torch.api import SAOptions, SuffixArrayIndex, build_suffix_array
+    from repro_torch.bsp.counters import BSPCounters
+    from repro_torch.bsp.suffix_array import estimate_costs
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_sa_mesh
+    t_phase = time.perf_counter()
+    cuda = dev.type == "cuda"
+
+    def build(record=None, sorted_rows=None):
+        """One build of `docs` on a fresh mesh; with `record`, each
+        stage's host-clock seconds go there; with `sorted_rows`, the rows
+        of the first local sort."""
+        mesh = make_sa_mesh(BSP_P, device=dev.type)
+        ct = BSPCounters()
+        opts = SAOptions(mesh=mesh, sort_impl="auto", counters=ct)
+        sync(dev)
+        t0 = time.perf_counter()
+        with ExitStack() as stack:
+            if record is not None:
+                stack.enter_context(stage_clock(record))
+            if sorted_rows is not None:
+                stack.enter_context(first_local_sort(sorted_rows))
+            out = SuffixArrayIndex.from_docs(docs, opts, device=dev)
+        sync(dev)
+        return out, ct, mesh, time.perf_counter() - t0
+
+    # (a) the phase-3 corpus through the facade, cold then warm
+    cold, warm, rows = [], [], []
+    zero_launches()
+    bidx, ct, mesh, cold_s = build(cold, rows)
+    launches = dict(ops.LAUNCHES)
+    launched(dev, "bsp", launches)
+    assert torch.equal(bidx.sa, idx.sa), "bsp SA differs from the dense SA"
+    got = bidx.count_batch(pats)
+    assert (got == counts).all(), "bsp count_batch differs"
+    labels = [e["label"] for e in ct.log]
+    bases = labels.count("base/gather")
+    assert mesh.rendezvous == ct.supersteps - bases, (mesh.rendezvous,
+                                                      ct.summary())
+    per_round = {st: sum(lb.startswith(st + "/") for lb in labels)
+                 / ct.rounds for st in ("SM1", "SM2")}
+    assert per_round == {"SM1": 11, "SM2": 9}, per_round
+    est = estimate_costs(bidx.n, BSP_P, sigma=SIGMA)
+    # the encoded text's own alphabet: the bytes shifted above one
+    # separator a document
+    est_text = estimate_costs(bidx.n, BSP_P,
+                              sigma=int(bidx.text.max()) + 1)
+    _, ct_warm, _, warm_s = build(warm)
+    assert ct_warm.log == ct.log
+    local_sort = bsp_local_sort_check(dev, rows[0])
+    del rows
+    traced = trace_build(dev, f"bsp radix p={BSP_P}", lambda: build())
+    del bidx
+    empty_cache(dev)
+
+    # (b) other meshes and impls, (c) the legacy single-device path
+    small_docs = make_corpus(BSP_DOCS, BSP_DOC_LEN, SEED)
+    small = SuffixArrayIndex.from_docs(small_docs, SAOptions(), device=dev)
+    others = []
+    for impl, p in BSP_OTHER + (("legacy bitonic", 1),):
+        c = BSPCounters()
+        opts = (SAOptions(sort_impl="bitonic") if p == 1 else
+                SAOptions(mesh=make_sa_mesh(p, device=dev.type),
+                          sort_impl=impl, counters=c))
+        zero_launches()
+        sync(dev)
+        t0 = time.perf_counter()
+        sa = build_suffix_array(small.text, opts, device=dev)
+        sync(dev)
+        sec = time.perf_counter() - t0
+        assert torch.equal(sa, small.sa), f"{impl} p={p} SA differs"
+        if impl == "radix":
+            launched(dev, "bsp", dict(ops.LAUNCHES))
+        others.append({"impl": impl, "p": p, "n": small.n, "build_s": sec,
+                       "counters": c.summary() if p > 1 else None,
+                       "launches": dict(ops.LAUNCHES)})
+    del small
+    empty_cache(dev)
+    return {"card": card_line() if cuda else "cpu", "p": BSP_P,
+            "n": idx.n, "counters": ct.summary(),
+            "estimate": est.summary(),
+            "estimate_text_sigma": est_text.summary(),
+            "rendezvous": mesh.rendezvous,
+            "base_gathers": bases,
+            "labels_per_round": per_round,
+            "build_s": {"cold": cold_s, "warm": warm_s},
+            "stages_s": {"cold": cold, "warm": warm},
+            "launches": launches, "level0_local_sort": local_sort,
+            "trace": traced, "others": others,
+            "phase_s": time.perf_counter() - t_phase}, launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2388,7 +2578,11 @@ def main() -> int:
     served = serving(dev, idx, sp, docs, pats, counts)
     plane = data_plane(dev)
     log(json.dumps({"data_plane": plane}))
-    del idx, sp, pats, counts, located
+    del sp, located
+    empty_cache(dev)
+    bsp, bsp_launches = bsp_phase(dev, idx, docs, pats, counts)
+    log(json.dumps({"bsp": bsp}))
+    del idx, pats, counts
     empty_cache(dev)
     lm, lm_launches = lm_phase(dev)
     log(json.dumps({"lm": lm}))
@@ -2406,6 +2600,7 @@ def main() -> int:
                                            for k in names)
         entry["launches_lm"] = sum(lm_launches.get(k, 0) for k in names)
         entry["launches_moe"] = sum(kinds_launches.get(k, 0) for k in names)
+        entry["launches_bsp"] = sum(bsp_launches.get(k, 0) for k in names)
     print(json.dumps({"kernels": table}))
     print(card)
     print(json.dumps({"ok": True, "device": {

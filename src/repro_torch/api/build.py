@@ -44,13 +44,26 @@ def clear_builder_cache() -> None:
     _CACHE_STATS["misses"] = 0
 
 
+def _resolved_impl(opts: SAOptions, backend: str,
+                   device: torch.device) -> str:
+    """Concrete sort_impl for this plan: the torch backend resolves by
+    device (`core.compat.resolve_sort_impl`), the bsp backend by
+    `bsp.psort.resolve_bsp_sort_impl` (imported lazily, so only bsp plans
+    load the BSP stack)."""
+    if backend == "torch":
+        return resolve_sort_impl(opts.sort_impl, device)
+    if backend == "bsp":
+        from ..bsp.psort import resolve_bsp_sort_impl
+        return resolve_bsp_sort_impl(opts.sort_impl, opts.pack_keys)
+    return opts.sort_impl
+
+
 def _cached_builder(opts: SAOptions, device: torch.device,
                     n: int) -> tuple[Callable, SAOptions]:
     """(builder, fully-resolved plan) for this plan, device and bucketed
     length; the resolution is memoised."""
     backend = opts.resolve_backend()
-    impl = (resolve_sort_impl(opts.sort_impl, device) if backend == "torch"
-            else opts.sort_impl)
+    impl = _resolved_impl(opts, backend, device)
     sched = (opts.schedule if isinstance(opts.schedule, str)
              else id(opts.schedule))
     key = (backend, opts.v0, sched, opts.base_threshold, impl, str(device),

@@ -6,8 +6,6 @@ The port of `repro.api.options`, with the same fields, validation and
 understand. The dataclass is frozen, so the builder cache in
 `repro_torch.api.build` can key configurations by its fields.
 
-What the port does not implement yet raises `NotImplementedError` here:
-the ``"bitonic"`` sort_impl.
 """
 from __future__ import annotations
 
@@ -43,24 +41,29 @@ class SAOptions:
     ------
     backend:        registry key (``"oracle" | "seq" | "torch" | "bsp"``) or
                     ``"auto"``: pick ``"bsp"`` when `mesh` is set, else
-                    ``"torch"``. ``"bsp"`` is not ported yet and raises.
+                    ``"torch"``. ``"bsp"`` runs Algorithm 3 on the mesh.
     v0:             initial difference-cover modulus (paper Algorithm 1).
     schedule:       ``"accelerated"`` (v' ~ v^{5/4}, the paper's headline),
                     ``"fixed"`` (constant v baseline), or a callable
                     ``(v, |D|, m) -> v'``.
     base_threshold: recursion cutoff; ``None`` keeps each backend's native
-                    default (seq: 32, torch: 256).
+                    default (seq: 32, torch: 256, bsp: max(1024, n/p)).
     sort_impl:      the torch backend's window sort
                     (`repro_torch.core.compat`): ``"kernel"`` the Hopper
                     kernels, ``"torch"`` stock `torch.sort`, ``"radix"``
                     the LSD radix sort on the histogram and scatter
-                    kernels, ``"auto"`` → ``"radix"`` on a CUDA device
-                    and ``"kernel"`` on the CPU.
+                    kernels, ``"bitonic"`` the legacy fused comparator
+                    network, ``"auto"`` → ``"radix"`` on a CUDA device
+                    and ``"kernel"`` on the CPU. The bsp backend's
+                    rank-local sorts (`repro_torch.bsp.psort`):
+                    ``"radix"``, ``"torch"``, ``"bitonic"``, ``"auto"`` →
+                    ``"radix"`` (``"torch"`` without `pack_keys`).
     cache:          enable the builder cache and bucketed shape padding in
                     `repro_torch.api.build`.
     mesh, axis, pack_keys, counters:
-                    BSP-backend fields, kept for plan compatibility with
-                    the JAX package.
+                    BSP-backend fields: the `repro_torch.launch.mesh`
+                    mesh and its axis name, SM1/SM2 key packing, and a
+                    `repro_torch.bsp.counters.BSPCounters` sink.
     stats:          ``repro_torch.core.seq_ref.SeqStats`` sink (seq backend).
     validate:       check input values are non-negative ints before building.
     segment_docs, compact_fanin:

@@ -15,8 +15,12 @@ once, so backends only implement the algorithm.
             (`repro_torch.core.dcv_torch.suffix_array_torch`) on the
             text's device — the default. Honours ``options.sort_impl`` and
             ``options.cache`` (bucketed shape padding).
-``bsp``     Algorithm 3 on a device mesh — not ported yet; raises
-            `NotImplementedError`.
+``bsp``     Algorithm 3 (`repro_torch.bsp.suffix_array.suffix_array_bsp`)
+            on ``options.mesh``, a single-controller mesh of p ranks
+            (`repro_torch.launch.mesh`); without one, a mesh of one rank
+            a device of the text's kind (p = 1 on one card: the
+            single-device path). Honours ``options.sort_impl`` (bsp
+            names), ``options.pack_keys`` and ``options.counters``.
 ==========  ===============================================================
 """
 from __future__ import annotations
@@ -81,8 +85,17 @@ def _torch_backend(x, options: SAOptions):
 
 
 def _bsp_backend(x, options: SAOptions):
-    raise NotImplementedError("the bsp backend (Algorithm 3 on a device "
-                              "mesh) is not ported yet")
+    from ..bsp.counters import NULL_COUNTERS
+    from ..bsp.suffix_array import suffix_array_bsp
+    mesh = options.mesh
+    if mesh is None:
+        from ..launch.mesh import make_sa_mesh
+        mesh = make_sa_mesh(axis=options.axis, device=x.device)
+    return suffix_array_bsp(
+        x, mesh, axis=options.axis, v=options.v0,
+        schedule=options.schedule_fn, base_threshold=options.base_threshold,
+        counters=options.counters or NULL_COUNTERS,
+        pack_keys=options.pack_keys, sort_impl=options.sort_impl)
 
 
 register_backend("oracle", _oracle_backend)

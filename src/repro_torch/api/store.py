@@ -29,9 +29,7 @@ spells them so), and `load_index` translates ``plan`` back into the
 port's names. So a default plan (``backend="auto"``, ``sort_impl=
 "auto"``) is one entry for both packages, a port plan and its
 counterpart there are one entry, and a different plan still raises
-`StaleIndexError`. A plan whose sort has no port counterpart yet
-(``"bitonic"``) raises `NotImplementedError` when restored without
-``options``.
+`StaleIndexError`.
 
 `SegmentedIndexStore` lifts the same contract to a `SegmentedIndex`: one
 versioned checkpoint per segment plus an atomically replaced corpus

@@ -1,9 +1,12 @@
 """Bulk-synchronous building blocks: the port of `repro.bsp`.
 
-Only `within_group_index` is here so far, the primitive the MoE router
-needs (`repro_torch.models.ffn`). The rest of the JAX package's
-`repro.bsp` (the other primitives, the exchange, the parallel sort and
-Algorithm 2/3) is ROADMAP queue 1, item 3.
+Algorithm 3 (`suffix_array.suffix_array_bsp`) on a single-controller mesh
+(`repro_torch.launch.mesh.LocalMesh`): Algorithm 2's parallel sort by
+regular sampling (`psort`), the two-hop row exchange (`exchange`), the
+rank-local primitives (`primitives`; `within_group_index` also serves the
+MoE router, `repro_torch.models.ffn`) and the cost accounting
+(`counters`). The modules are imported where they are used, so that the
+MoE does not load the suffix-array stack.
 """
 from .primitives import within_group_index
 

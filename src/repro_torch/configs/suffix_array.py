@@ -78,7 +78,7 @@ class SAConfig:
         """The `repro_torch.api.SAOptions` plan this config describes.
         Runtime objects (mesh, instrumentation sinks) are supplied here —
         they do not belong in a frozen launch config. A mesh selects the
-        bsp backend, which is not ported yet."""
+        bsp backend (with ``backend="auto"``)."""
         from ..api import SAOptions
         return SAOptions(backend=self.backend, v0=self.v0,
                          schedule=self.schedule,

@@ -55,3 +55,25 @@ def bitonic_sort(payload: dict, lt_fn) -> dict:
                               other[name])
             for name, t in payload.items()}
     return payload
+
+
+def lex_lt_int(a_cols: torch.Tensor, b_cols: torch.Tensor):
+    """Vectorised lexicographic (lt, all_eq) over the trailing axis of
+    int columns [N, W], without a loop over W: the first differing column
+    is the argmax of the inequality mask."""
+    neq = a_cols != b_cols
+    any_neq = neq.any(dim=-1)
+    first = neq.to(torch.uint8).argmax(dim=-1, keepdim=True)
+    lt = any_neq & (a_cols.gather(-1, first)[:, 0]
+                    < b_cols.gather(-1, first)[:, 0])
+    return lt, ~any_neq
+
+
+def sort_rows_with_index(cols: torch.Tensor, num_cols: int) -> torch.Tensor:
+    """Key-based row sort: the permutation (int64[N]) that sorts the rows
+    of `cols` lexicographically by their first `num_cols` columns, ties in
+    row order. Stable `torch.sort` passes, last column first."""
+    order = torch.arange(cols.shape[0], device=cols.device)
+    for c in reversed(range(num_cols)):
+        order = order[torch.sort(cols[order, c], stable=True).indices]
+    return order

@@ -17,22 +17,23 @@ the CPU unless the caller asks for it with ``device="cpu"``.
             counterpart of the JAX "radix"): an LSD radix sort on the
             hand-written histogram and scatter kernels, their plain
             versions on a CPU tensor.
+"bitonic"   the legacy fused path: a key sort of the sample windows and
+            one comparator-bitonic network (`core.bitonic`, plain PyTorch
+            ops) over every suffix of a level, as the JAX package's
+            "bitonic".
 "auto"      resolves by device (`default_sort_impl`): "radix" on a CUDA
             device, "kernel" on the CPU.
 ==========  ==============================================================
 
-"bitonic" is a name of the JAX package that the port has not taken over
-yet; asking for it raises `NotImplementedError`.
+The bsp backend takes "auto", "radix", "torch" and "bitonic" and rejects
+"kernel" (`repro_torch.bsp.psort.resolve_bsp_sort_impl`).
 """
 from __future__ import annotations
 
 import torch
 
 #: accepted `sort_impl` values ("auto" resolves via `default_sort_impl`).
-SORT_IMPLS = ("auto", "torch", "kernel", "radix")
-
-#: reference names the port does not implement yet.
-NOT_PORTED_SORT_IMPLS = ("bitonic",)
+SORT_IMPLS = ("auto", "torch", "kernel", "radix", "bitonic")
 
 
 def resolve_device(device="cuda") -> torch.device:
@@ -48,10 +49,6 @@ def resolve_device(device="cuda") -> torch.device:
 
 def check_sort_impl(sort_impl: str) -> str:
     """Validate a `sort_impl` name; returns it unchanged."""
-    if sort_impl in NOT_PORTED_SORT_IMPLS:
-        raise NotImplementedError(
-            f"sort_impl={sort_impl!r} is not ported yet; use one of "
-            f"{SORT_IMPLS}")
     if sort_impl not in SORT_IMPLS:
         raise ValueError(f"unknown sort_impl {sort_impl!r}; "
                          f"expected one of {SORT_IMPLS}")

@@ -24,6 +24,9 @@ with `dense_rank_sorted`; "torch" packs the window columns into int64
 words and sorts them with stable `torch.sort` passes; "radix" sorts the
 same words with `radix_argsort`, the LSD radix sort on the histogram and
 scatter kernels. "torch" and "radix" rank the samples from the words.
+"bitonic" is the JAX package's legacy fused path: a key sort ranks the
+sample windows, and ONE comparator-bitonic network (`core.bitonic`, the
+Lemma-1 comparator at every stage) sorts all suffixes of a level.
 """
 from __future__ import annotations
 
@@ -34,7 +37,8 @@ import torch
 
 from ..kernels.ops import bitonic_sort as kernel_bitonic_sort
 from ..kernels.ops import dense_rank_sorted, radix_argsort
-from .bitonic import bitonic_sort, next_pow2
+from .bitonic import (bitonic_sort, lex_lt_int, next_pow2,
+                      sort_rows_with_index)
 from .compat import resolve_device, resolve_sort_impl
 from .difference_cover import cover_tables
 from .seq_ref import accelerated_next_v
@@ -369,27 +373,102 @@ def _resolve_ties(order, is_start, rank, shifts, lam1, lam2, v: int,
     sl = _compact(unresolved, U)
     p = order[sl]
     klass = p % v
-    rvals = rank[p[:, None] + shifts[klass]]
-    lane = sl - run_start[sl]
+    order[sl] = _lemma1_order(p, sl - run_start[sl], run_start[sl],
+                              rank[p[:, None] + shifts[klass]], klass, lam1,
+                              lam2)
+    return order
+
+
+def _lemma1_order(p, lane, seg, rvals, klass, lam1, lam2) -> torch.Tensor:
+    """Order the members of each tie group by the Lemma-1 comparator.
+
+    `p` [U] lists the tied rows in slot order, each group contiguous; `lane`
+    is a row's offset inside its group, `seg` a key equal within a group
+    and increasing across groups, `rvals` [U, |D|] and `klass` [U] the
+    rows' sample ranks and classes. Ties of the comparator fall to `p`.
+    Narrow groups run lane-parallel (`_lambda_tiebreak_lanes`), wide ones
+    the full-length network (`_lambda_tiebreak`). Returns p reordered."""
     widest, n_rows = torch.stack([lane.max(), (lane == 0).sum()]).tolist()
     g2 = next_pow2(widest + 1)
     if g2 <= _LANE_MAX:
-        order[sl] = _lambda_tiebreak_lanes(p, lane, n_rows, g2, rvals, klass,
-                                           lam1, lam2)
-        return order
-
+        return _lambda_tiebreak_lanes(p, lane, n_rows, g2, rvals, klass,
+                                      lam1, lam2)
+    U = len(p)
     n2 = next_pow2(U)
-    device = order.device
-    seg = torch.full((n2,), INT32_MAX, dtype=I64, device=device)
-    rv = torch.zeros((n2, shifts.shape[1]), dtype=I64, device=device)
+    device = p.device
+    seg_p = torch.full((n2,), INT32_MAX, dtype=I64, device=device)
+    rv = torch.zeros((n2, rvals.shape[1]), dtype=I64, device=device)
     kl = torch.zeros(n2, dtype=I64, device=device)
     pos = torch.full((n2,), INT32_MAX, dtype=I64, device=device)
-    seg[:U] = r_pos[p]
+    seg_p[:U] = seg
     rv[:U] = rvals
     kl[:U] = klass
     pos[:U] = p
-    order[sl] = _lambda_tiebreak(seg, rv, kl, pos, lam1, lam2)[:U]
-    return order
+    return _lambda_tiebreak(seg_p, rv, kl, pos, lam1, lam2)[:U]
+
+
+# --------------------------------------------------------------------------
+# legacy fully-fused bitonic path (sort_impl="bitonic")
+# --------------------------------------------------------------------------
+#: the chars of the payload's pad rows: above every character (text values
+#: are below 2³¹), so pads sort after every real suffix.
+_PAD_CHAR = 2 ** 31
+
+
+def _encode_sample(xp: torch.Tensor, sample_pos: torch.Tensor, v: int):
+    """Step 1 (first half): rank the super-characters (v-character windows)
+    of the sample positions with a key sort of the window rows. Returns
+    (X' int64[m], the number of distinct windows, the sample ranks that
+    are final when all windows are distinct)."""
+    m = len(sample_pos)
+    device = xp.device
+    win = xp[sample_pos[:, None] + torch.arange(v, device=device)[None, :]]
+    perm = sort_rows_with_index(win, v)
+    ws = win[perm]
+    boundary = torch.ones(m, dtype=torch.bool, device=device)
+    boundary[1:] = (ws[1:] != ws[:-1]).any(dim=1)
+    ranks_sorted = torch.cumsum(boundary, 0) - 1
+    xs = torch.empty(m, dtype=I64, device=device)
+    xs[perm] = ranks_sorted
+    sa_rank = torch.empty(m, dtype=I64, device=device)
+    sa_rank[perm] = torch.arange(m, device=device)
+    return xs, int(ranks_sorted[-1]) + 1, sa_rank
+
+
+def _fused_final_sort(xp, sample_pos, sa_rank, shifts, lam1, lam2, v: int,
+                      n_v: int) -> torch.Tensor:
+    """Fused Steps 2–4: one comparator-bitonic sort of all n_v suffixes by
+    (window, Lemma-1 rank `rank[i + Λ[k_i][k_j]]`, position).
+
+    O(n log² n) compare-exchanges over the full payload: the JAX package
+    keeps it as the executable reference of the keyed paths and as a
+    regression row. Returns int64[n_v], the positions in suffix order."""
+    device = xp.device
+    rank = torch.full((n_v + v,), -1, dtype=I64, device=device)
+    rank[sample_pos] = sa_rank
+    pos = torch.arange(n_v, device=device)
+    klass = pos % v
+    rvals = rank[pos[:, None] + shifts[klass]]               # [n_v, |D|]
+    chars = xp[pos[:, None] + torch.arange(v, device=device)[None, :]]
+    n2 = next_pow2(n_v)
+    pad = n2 - n_v
+    payload = {
+        "chars": torch.cat([chars, torch.full((pad, v), _PAD_CHAR, dtype=I64,
+                                              device=device)]),
+        "ranks": torch.cat([rvals, rvals.new_zeros((pad, rvals.shape[1]))]),
+        "klass": torch.cat([klass, klass.new_zeros(pad)]),
+        "idx": torch.arange(n2, device=device),
+    }
+
+    def lt_fn(a, b):
+        char_lt, char_eq = lex_lt_int(a["chars"], b["chars"])
+        ka, kb = a["klass"], b["klass"]
+        ra = a["ranks"].gather(1, lam1[ka, kb][:, None])[:, 0]
+        rb = b["ranks"].gather(1, lam2[ka, kb][:, None])[:, 0]
+        return torch.where(char_eq & (ra != rb), ra < rb,
+                           torch.where(char_eq, a["idx"] < b["idx"], char_lt))
+
+    return bitonic_sort(payload, lt_fn)["idx"][:n_v]
 
 
 # --------------------------------------------------------------------------
@@ -441,6 +520,15 @@ def suffix_array_torch(
         (sample_pos, inv_sample, in_D, shifts,
          lam1, lam2) = _level_constants(n_v, v, dev)
         m = len(sample_pos)
+        if impl == "bitonic":
+            xs, n_distinct, sa_rank = _encode_sample(xp, sample_pos, v)
+            if n_distinct != m:
+                sa_sub = rec(xs, schedule(v, len(cover_tables(v).D), m),
+                             n_distinct - 1)
+                sa_rank[sa_sub] = torch.arange(m, device=dev)
+            sa_full = _fused_final_sort(xp, sample_pos, sa_rank, shifts,
+                                        lam1, lam2, v, n_v)
+            return sa_full[sa_full < n]
         lo = -(n_v + 2 * v - n)
 
         # --- ONE window sort feeds Step 1 AND Steps 2–4 ---

@@ -16,7 +16,11 @@ coalescing into pow2 buckets, admission control (`--overload-policy`)
 and per-request queue/service/total latency percentiles, with a warmup
 pass excluded. `--segments K` serves a `SegmentedIndex` of K segments
 (persisted through a `SegmentedIndexStore`) and `--ingest M` streams M
-documents through `add_docs` after the build.
+documents through `add_docs` after the build. When more than one device
+of `--device`'s kind is visible, the index is built by Algorithm 3 on a
+mesh of one rank a device (the bsp backend, `repro_torch.launch.mesh`)
+and the run prints its BSP costs, as the JAX package does on a
+multi-device host; on one card the torch backend builds it.
 
 The LM half (``--arch <model>``, any of the ten model architectures):
 `prefill_then_decode` of a seeded prompt batch through a freshly
@@ -26,9 +30,6 @@ attends to the encoding of seeded frame embeddings.
 
     python -m repro_torch.launch.serve --arch gemma3-1b --batch 4 \\
         --prompt-len 16 --gen 32
-
-The JAX package's mesh/BSP route (a 1-D mesh when several devices are
-visible) has no counterpart yet (ROADMAP queue 1, item 3).
 """
 from __future__ import annotations
 
@@ -171,7 +172,9 @@ def serve_sa_queries(cfg, *, n_chars: int, n_docs: int, n_queries: int,
     from ..api import (IndexStore, SegmentedIndex, SegmentedIndexStore,
                        SuffixArrayIndex, builder_cache_stats,
                        corpus_fingerprint, encode_docs)
+    from ..bsp.counters import BSPCounters
     from ..serve import SAServer, make_arrivals, run_open_loop, summarize
+    from .mesh import make_sa_mesh, visible_devices
 
     dev = resolve_device(device)
     n_segments = int(segments if segments is not None
@@ -182,7 +185,10 @@ def serve_sa_queries(cfg, *, n_chars: int, n_docs: int, n_queries: int,
         raise ValueError("--ingest requires --segments > 0: the monolithic "
                          "index has no incremental ingest path")
 
-    opts = cfg.to_options()
+    mesh = (make_sa_mesh(device=dev) if len(visible_devices(dev)) > 1
+            else None)
+    counters = BSPCounters() if mesh is not None else None
+    opts = cfg.to_options(mesh=mesh, counters=counters)
     rng = np.random.default_rng(seed)
     doc_len = max(n_chars // max(n_docs, 1), pattern_len + 1)
     docs = [rng.integers(0, 256, size=doc_len) for _ in range(n_docs)]
@@ -254,6 +260,13 @@ def serve_sa_queries(cfg, *, n_chars: int, n_docs: int, n_queries: int,
                      f"(-{ingested['segments_deleted']} dropped) in "
                      f"{ingested['sync_seconds']:.3f}s")
         print(line)
+    if counters is not None and counters.supersteps:
+        from ..bsp.psort import resolve_bsp_sort_impl
+        impl = resolve_bsp_sort_impl(opts.sort_impl, opts.pack_keys)
+        print(f"bsp costs: S={counters.supersteps} supersteps over "
+              f"{counters.rounds} distributed rounds, "
+              f"H={counters.comm_words} words, W={counters.work} ops "
+              f"(sort_impl={impl})")
 
     # half the queries are planted substrings (must hit), half random
     patterns, planted = [], np.zeros(n_queries, bool)

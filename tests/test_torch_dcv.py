@@ -23,6 +23,7 @@ from repro.core.oracle import suffix_array_doubling
 from repro_torch.api import (SAOptions, build_suffix_array,
                              builder_cache_stats, clear_builder_cache,
                              registered_backends)
+from repro_torch.bsp.counters import BSPCounters
 from repro_torch.core import dcv_torch
 from repro_torch.core.compat import resolve_sort_impl
 from repro_torch.core.dcv_torch import suffix_array_torch
@@ -204,8 +205,11 @@ def test_builder_cache_shares_bucketed_plans():
 
 def test_options_validation_and_fingerprint():
     assert registered_backends() == ("bsp", "oracle", "seq", "torch")
-    with pytest.raises(NotImplementedError):
-        SAOptions(sort_impl="bitonic")
+    x = _text("periodic", 600)
+    want = suffix_array_doubling(x)
+    np.testing.assert_array_equal(
+        build_suffix_array(x, SAOptions(sort_impl="bitonic"),
+                           device="cpu").numpy(), want)
     for impl in ("lax", "pallas", "quantum"):
         with pytest.raises(ValueError, match="sort_impl"):
             SAOptions(sort_impl=impl)
@@ -218,8 +222,12 @@ def test_options_validation_and_fingerprint():
         SAOptions(sample_rate=0)
     with pytest.raises(ValueError):
         SAOptions(v0=2)
-    with pytest.raises(NotImplementedError):
-        build_suffix_array(np.arange(10), backend="bsp", device="cpu")
+    # no mesh: one rank a device of the text's kind, p = 1 on the CPU
+    counters = BSPCounters()
+    np.testing.assert_array_equal(
+        build_suffix_array(x, backend="bsp", counters=counters,
+                           device="cpu").numpy(), want)
+    assert counters.log == [{"label": "base/gather", "h": 600, "w": 2400}]
     kw = {"v0": 5, "schedule": "fixed", "base_threshold": 64}
     assert (SAOptions(**kw).fingerprint()
             == japi.SAOptions(**kw).fingerprint())

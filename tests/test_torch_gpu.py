@@ -295,6 +295,33 @@ def test_small_radix_and_sparse_builds_match_cpu(cuda):
         np.testing.assert_array_equal(a, b)
 
 
+@pytest.mark.parametrize("impl", ["radix", "torch", "bitonic"])
+def test_bsp_build_on_the_card_matches_the_single_device_sa(cuda, impl):
+    from repro_torch.bsp.counters import BSPCounters
+    from repro_torch.bsp.suffix_array import suffix_array_bsp
+    from repro_torch.launch.mesh import make_sa_mesh
+    rng = np.random.default_rng(19)
+    x = torch.from_numpy(rng.integers(0, 20, 60_000)).to(cuda)
+    x[30_000:31_000] = x[1_000:2_000]             # Lemma-1 ties at depth
+    want = suffix_array_torch(x, device=cuda)
+    for key in ops.LAUNCHES:
+        ops.LAUNCHES[key] = 0
+    mesh = make_sa_mesh(8, device="cuda")
+    ct = BSPCounters()
+    got = suffix_array_bsp(x, mesh, base_threshold=2048, counters=ct,
+                           sort_impl=impl)
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+    assert ct.rounds >= 2 and mesh.rendezvous == ct.supersteps - sum(
+        e["label"] == "base/gather" for e in ct.log)
+    # "torch" sorts its keys with torch.sort; its base case is the default
+    # single-device build, on the radix kernels
+    launched = {k for k, v in ops.LAUNCHES.items() if v}
+    if impl == "torch":
+        assert launched <= {"radix_hist", "radix_scatter"}, ops.LAUNCHES
+    else:
+        assert launched == {"radix_hist", "radix_scatter"}, ops.LAUNCHES
+
+
 # ------------------------------------------------------- serving on the card
 def _serving_corpus():
     rng = np.random.default_rng(15)

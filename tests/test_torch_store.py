@@ -439,8 +439,13 @@ def test_bitonic_plan_has_no_port_counterpart(tmp_path):
     japi.save_index(path, ref)
     with pytest.raises(StaleIndexError, match="plan"):
         load_index(path, options=SAOptions(), device=CPU)
-    with pytest.raises(NotImplementedError, match="bitonic"):
-        load_index(path, device=CPU)
+    # the port now has the counterpart: the plan restores as the port's
+    got = load_index(path, device=CPU)
+    assert got.options.sort_impl == "bitonic"
+    assert got.options.fingerprint() == ref.options.fingerprint()
+    np.testing.assert_array_equal(got.sa.numpy(), np.asarray(ref.sa))
+    assert load_index(path, options=SAOptions(sort_impl="bitonic"),
+                      device=CPU).options.sort_impl == "bitonic"
 
 
 def test_segmented_entries_load_across_packages(tmp_path):
