@@ -157,10 +157,25 @@ Phases (any failure exits non-zero; no phase's exception is caught):
    single-device ``sort_impl="bitonic"`` too. Prints a ``{"bsp": ...}``
    line with the phase's wall time.
 
+13. The dry run (`repro_torch.launch.dryrun`, `op_stats`) against the
+   card (after phase 11, its state freed): (a) phase 10's gemma3-1b step
+   and phase 11's phi3.5-moe step (2 layers), each at 4 x 1,024 tokens
+   with its optimizer: the dry run's one-card argument bytes (parameters
+   and optimizer state, from the specs on ``meta``) must equal the bytes
+   of that state on the card, and its trip-count-scaled FLOP count on
+   ``meta`` must equal the same counter over one real step on the card;
+   then the counted FLOPs and ``model_flops``, the achieved TFLOP/s over
+   phases 10/11's untraced step seconds of this run, the predicted peak
+   (arguments + ``temp_size_in_bytes``) beside `max_memory_allocated` of
+   one more step, and the FLOP split by part (attention, MLP or experts,
+   unembedding); (b) `run_cell` of every arch at decode_32k and of
+   gemma3-1b at train_4k, each with status "ok" and its seconds. Prints a
+   ``{"dry_run": ...}`` line; launches no hand kernel.
+
 Standard output ends with a JSON line of per-kernel numbers (each with
 its launches on every path, ``launches_bsp`` for phase 12 (a)'s cold
-build), the card's name and power limit, and ``{"ok": true, "device":
-{...}}``.
+build, ``launches_dryrun`` for phase 13's, 0), the card's name and
+power limit, and ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -271,6 +286,11 @@ KIND_GEN = 16
 #: (c): the five configs of this slice at smoke(), the card against the CPU.
 NEW_ARCHS = ("kimi-k2-1t-a32b", "phi3.5-moe-42b-a6.6b", "recurrentgemma-2b",
              "rwkv6-1.6b", "whisper-small")
+
+#: phase 13 (b): the dry run's cells run whole, one per arch at this shape
+#: (one token a sequence: seconds each) and one train cell.
+DRY_SHAPE = "decode_32k"
+DRY_TRAIN_CELL = ("gemma3-1b", "train_4k")
 
 #: phase 12: Algorithm 3 on a mesh of BSP_P ranks sharing the card; (b)
 #: and (c) at 2^20 tokens (256 documents of 4,095 tokens and their
@@ -2539,6 +2559,108 @@ def bsp_phase(dev, idx, docs, pats, counts) -> tuple[dict, dict]:
             "phase_s": time.perf_counter() - t_phase}, launches
 
 
+# -------------------------------------------------------------- phase 13
+def dry_step(dev, cfg, batch: int, seq_len: int, step_s: float) -> dict:
+    """Phase 13 (a) for one train step of `cfg` on ``[batch, seq_len]``
+    tokens (the shapes phase 10 or 11 trains, with their optimizer and
+    remat): the dry run's count on ``meta`` (trip-count scaled) and its
+    one-card argument bytes, each held equal to the same step on the card;
+    the achieved TFLOP/s over `step_s` (that phase's untraced step
+    seconds); the predicted peak beside the measured one; the FLOP split
+    by part."""
+    import torch
+    from repro_torch.launch import dryrun, op_stats
+    from repro_torch.models.config import ShapeConfig
+    from repro_torch.train.optim import OptConfig
+    from repro_torch.train.train_step import TrainConfig
+    cuda = dev.type == "cuda"
+    tcfg = TrainConfig(opt=OptConfig(name=cfg.optimizer),
+                       schedule=cfg.lr_schedule, warmup=1, total_steps=4)
+    shape = ShapeConfig("phase", seq_len, batch, "train")
+    t0 = time.perf_counter()
+    meta = op_stats.scaled_count(lambda c, S: dryrun.train_step_args(
+        c, tcfg, batch, S), cfg, seq_len)
+    meta_s = time.perf_counter() - t0
+    # one card: a mesh of one device a axis
+    _, _, specs = dryrun.step_cell(cfg, shape, {"data": 1, "model": 1})
+    predicted = {k: dryrun.tree_nbytes(specs[k]) for k in ("params", "opt")}
+    split = dryrun.flop_split(cfg, batch, seq_len)
+
+    step, (state, data) = dryrun.train_step_args(cfg, tcfg, batch, seq_len,
+                                                 device=dev, seed=SEED)
+    measured = dryrun.state_nbytes(state)
+    assert measured == predicted, (cfg.name, measured, predicted)
+    batch_bytes = sum(t.numel() * t.element_size() for t in data.values())
+    sync(dev)
+    t0 = time.perf_counter()
+    card = op_stats.count(step, state, data)
+    sync(dev)
+    card_s = time.perf_counter() - t0
+    assert card["flops"] == meta["flops"], (cfg.name, card, meta)
+    empty_cache(dev)
+    if cuda:
+        torch.cuda.reset_peak_memory_stats(dev)
+    before = torch.cuda.memory_allocated(dev) if cuda else None
+    state, _ = step(state, data)
+    sync(dev)
+    peak = torch.cuda.max_memory_allocated(dev) if cuda else None
+    del state, data, step
+    empty_cache(dev)
+    args = sum(measured.values()) + batch_bytes
+    predicted_peak = args + meta["peak_bytes"]
+    model_flops = dryrun.model_flops_estimate(cfg, shape)
+    total = sum(split.values())
+    return {"arch": cfg.name, "layers": cfg.n_layers, "batch": batch,
+            "seq_len": seq_len, "remat": cfg.remat,
+            "optimizer": cfg.optimizer,
+            "flops": meta["flops"], "flops_card": card["flops"],
+            "bytes": meta["bytes"], "bytes_card": card["bytes"],
+            "model_flops": model_flops,
+            "flops_over_model_flops": meta["flops"] / model_flops,
+            "step_s": step_s, "tflops": meta["flops"] / step_s / 1e12,
+            "argument_bytes": measured, "batch_bytes": batch_bytes,
+            "allocated_before_step": before,
+            "temp_size_in_bytes": meta["peak_bytes"],
+            "predicted_peak": predicted_peak,
+            "max_memory_allocated": peak,
+            "predicted_over_measured_peak": (predicted_peak / peak
+                                             if peak else None),
+            "split": split,
+            "split_share": {k: v / total for k, v in split.items()},
+            "split_sums_to_count": total == meta["flops"],
+            "count_s_meta": meta_s, "count_s_card": card_s,
+            "runs": meta["runs"]}
+
+
+def dry_run_phase(dev, lm_step_s: float, moe_step_s: float) -> dict:
+    """Phase 13: (a) phase 10's gemma3-1b step and phase 11's phi3.5-moe
+    step dry-run and held to the card; (b) one `run_cell` of every arch at
+    decode_32k and of gemma3-1b at train_4k, each "ok". Launches no hand
+    kernel."""
+    from repro_torch.configs import get_config, model_archs
+    from repro_torch.kernels import ops
+    from repro_torch.launch import dryrun
+    t_phase = time.perf_counter()
+    zero_launches()
+    steps = [dry_step(dev, get_config(LM_ARCH), LM_BATCH, LM_SEQ_LEN,
+                      lm_step_s),
+             dry_step(dev, get_config(MOE_ARCH).replace(n_layers=MOE_LAYERS),
+                      LM_BATCH, LM_SEQ_LEN, moe_step_s)]
+    cells = []
+    for arch, shape in [(a, DRY_SHAPE) for a in model_archs()] + \
+            [DRY_TRAIN_CELL]:
+        rec = dryrun.run_cell(arch, shape, "single", "")
+        assert rec["status"] == "ok", rec
+        cells.append({k: rec[k] for k in (
+            "arch", "shape", "total_s", "flops", "model_flops",
+            "argument_size_in_bytes", "temp_size_in_bytes")})
+    launches = dict(ops.LAUNCHES)
+    assert not any(launches.values()), launches
+    return {"card": card_line() if dev.type == "cuda" else "cpu",
+            "steps": steps, "cells": cells, "launches": launches,
+            "phase_s": time.perf_counter() - t_phase}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2589,6 +2711,10 @@ def main() -> int:
     empty_cache(dev)
     kinds, kinds_launches = kinds_phase(dev)
     log(json.dumps({"lm_kinds": kinds}))
+    empty_cache(dev)
+    dry = dry_run_phase(dev, lm["train"]["step_s_median_2_4"],
+                        kinds["moe"]["step_s_median_2_4"])
+    log(json.dumps({"dry_run": dry}))
     for entry in table:
         names = ("bitonic_tile", "bitonic_cross") \
             if entry["name"] == "bitonic_sort" else \
@@ -2601,6 +2727,8 @@ def main() -> int:
         entry["launches_lm"] = sum(lm_launches.get(k, 0) for k in names)
         entry["launches_moe"] = sum(kinds_launches.get(k, 0) for k in names)
         entry["launches_bsp"] = sum(bsp_launches.get(k, 0) for k in names)
+        entry["launches_dryrun"] = sum(dry["launches"].get(k, 0)
+                                       for k in names)
     print(json.dumps({"kernels": table}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -189,9 +189,24 @@ def make_sa_mesh(p: int | None = None, axis: str = "bsp",
     return LocalMesh([devs[r % len(devs)] for r in range(p)], axis)
 
 
+def production_mesh_shape(*, multi_pod: bool = False) -> dict:
+    """The axis sizes of the JAX package's production meshes
+    (`repro.launch.mesh.make_production_mesh`): one pod is (data=16,
+    model=16) = 256 chips; two pods are (pod=2, data=16, model=16) = 512
+    chips, the ``pod`` axis pure extra data parallelism. No device is
+    made: one card has no such mesh, and the dry run
+    (`repro_torch.launch.dryrun`) needs only the sizes."""
+    if multi_pod:
+        return {"pod": 2, "data": 16, "model": 16}
+    return {"data": 16, "model": 16}
+
+
 def mesh_num_devices(mesh) -> int:
-    """The number of ranks of a mesh (the product of its axis sizes)."""
+    """The number of ranks of a mesh (the product of its axis sizes): a
+    `LocalMesh`, or a dict of axis sizes (`production_mesh_shape`)."""
+    sizes = mesh.values() if isinstance(mesh, dict) else \
+        [mesh.shape[a] for a in mesh.axis_names]
     n = 1
-    for a in mesh.axis_names:
-        n *= mesh.shape[a]
+    for size in sizes:
+        n *= size
     return n

@@ -184,14 +184,17 @@ def update_cache(cache_k, cache_v, k_new, v_new, cur_pos: int):
 # --------------------------------------------------------------------------
 # full attention layer (projections + rope + flash/decode)
 # --------------------------------------------------------------------------
-def _param(shape, *, scale: float = 0.02, init: str = "normal",
+def _param(shape, axes, *, scale: float = 0.02, init: str = "normal",
            device=None, dtype=torch.float32) -> nn.Parameter:
     """An uninitialised parameter that carries its init rule
     (`repro.models.sharding.ParamCollector`'s: normal × scale, zeros or
-    ones);
+    ones) and its logical axes (one name or None a dimension, the JAX
+    package's; `repro_torch.models.sharding` maps them onto a mesh);
     `repro_torch.models.lm.reset_parameters` draws it."""
+    assert len(shape) == len(axes), (shape, axes)
     p = nn.Parameter(torch.empty(tuple(shape), device=device, dtype=dtype))
     p.init_rule = (init, scale)
+    p.logical_axes = tuple(axes)
     return p
 
 
@@ -205,14 +208,20 @@ class Attention(nn.Module):
 
 def init_attention(mod: nn.Module, cfg, device=None) -> None:
     hd = cfg.hd
-    mod.wq = _param((cfg.d_model, cfg.n_heads, hd), device=device)
-    mod.wk = _param((cfg.d_model, cfg.n_kv_heads, hd), device=device)
-    mod.wv = _param((cfg.d_model, cfg.n_kv_heads, hd), device=device)
+    mod.wq = _param((cfg.d_model, cfg.n_heads, hd),
+                    ("embed_fsdp", "heads", "head_dim"), device=device)
+    mod.wk = _param((cfg.d_model, cfg.n_kv_heads, hd),
+                    ("embed_fsdp", "kv_heads", "head_dim"), device=device)
+    mod.wv = _param((cfg.d_model, cfg.n_kv_heads, hd),
+                    ("embed_fsdp", "kv_heads", "head_dim"), device=device)
     mod.wo = _param((cfg.n_heads, hd, cfg.d_model),
+                    ("heads", "head_dim", "embed_fsdp"),
                     scale=0.02 / np.sqrt(2 * cfg.n_layers), device=device)
     if cfg.qk_norm:
-        mod.q_norm = _param((hd,), init="zeros", device=device)
-        mod.k_norm = _param((hd,), init="zeros", device=device)
+        mod.q_norm = _param((hd,), ("head_dim",), init="zeros",
+                            device=device)
+        mod.k_norm = _param((hd,), ("head_dim",), init="zeros",
+                            device=device)
 
 
 def attention_layer(p, cfg, x, *, is_local: bool, positions=None,

@@ -42,9 +42,11 @@ class MLP(nn.Module):
 
 
 def init_mlp(mod: nn.Module, cfg, device=None) -> None:
-    mod.wg = _param((cfg.d_model, cfg.d_ff), device=device)
-    mod.wu = _param((cfg.d_model, cfg.d_ff), device=device)
-    mod.wd = _param((cfg.d_ff, cfg.d_model),
+    mod.wg = _param((cfg.d_model, cfg.d_ff), ("embed_fsdp", "mlp"),
+                    device=device)
+    mod.wu = _param((cfg.d_model, cfg.d_ff), ("embed_fsdp", "mlp"),
+                    device=device)
+    mod.wd = _param((cfg.d_ff, cfg.d_model), ("mlp", "embed_fsdp"),
                     scale=0.02 / np.sqrt(2 * cfg.n_layers), device=device)
 
 
@@ -69,11 +71,13 @@ class MoE(nn.Module):
 
 def init_moe(mod: nn.Module, cfg, device=None) -> None:
     E, d, ff = cfg.n_experts, cfg.d_model, cfg.d_ff
-    mod.router = _param((d, E), device=device)
-    mod.wg = _param((E, d, ff), device=device)
-    mod.wu = _param((E, d, ff), device=device)
-    mod.wd = _param((E, ff, d), scale=0.02 / np.sqrt(2 * cfg.n_layers),
+    mod.router = _param((d, E), ("embed", None), device=device)
+    mod.wg = _param((E, d, ff), ("experts", "embed_fsdp", "expert_mlp"),
                     device=device)
+    mod.wu = _param((E, d, ff), ("experts", "embed_fsdp", "expert_mlp"),
+                    device=device)
+    mod.wd = _param((E, ff, d), ("experts", "expert_mlp", "embed_fsdp"),
+                    scale=0.02 / np.sqrt(2 * cfg.n_layers), device=device)
 
 
 class Routing(NamedTuple):

@@ -53,11 +53,13 @@ class Block(nn.Module):
         super().__init__()
         self.kind = kind
         d = cfg.d_model
-        self.norm1 = _param((d,), init="zeros", device=device)
-        self.norm2 = _param((d,), init="zeros", device=device)
+        self.norm1 = _param((d,), ("embed",), init="zeros", device=device)
+        self.norm2 = _param((d,), ("embed",), init="zeros", device=device)
         if cfg.sandwich_norm:
-            self.post1 = _param((d,), init="zeros", device=device)
-            self.post2 = _param((d,), init="zeros", device=device)
+            self.post1 = _param((d,), ("embed",), init="zeros",
+                                device=device)
+            self.post2 = _param((d,), ("embed",), init="zeros",
+                                device=device)
         if kind in ("g", "l", "b"):
             self.attn = Attention(cfg, device)
         elif kind == "r":
@@ -67,7 +69,8 @@ class Block(nn.Module):
         else:
             raise ValueError(f"unknown layer kind {kind!r}")
         if cross:
-            self.norm_x = _param((d,), init="zeros", device=device)
+            self.norm_x = _param((d,), ("embed",), init="zeros",
+                                 device=device)
             self.xattn = Attention(cfg, device)
         if kind == "w":
             self.cmix = ChannelMix(cfg, device)
@@ -91,17 +94,18 @@ class LM(nn.Module):
         dtype = torch.bfloat16 if cfg.param_dtype == "bfloat16" \
             else torch.float32
         self.embed = _param((cfg.vocab_size, cfg.d_model),
-                            scale=cfg.d_model ** -0.5, device=device,
-                            dtype=dtype)
+                            ("vocab", "embed"), scale=cfg.d_model ** -0.5,
+                            device=device, dtype=dtype)
         self.blocks = nn.ModuleList(
             Block(cfg, cfg.pattern[i % P], device, cross=cfg.is_encdec)
             for i in range(cfg.n_layers))
-        self.final_norm = _param((cfg.d_model,), init="zeros", device=device)
+        self.final_norm = _param((cfg.d_model,), ("embed",), init="zeros",
+                                 device=device)
         if cfg.is_encdec:
             self.enc = nn.ModuleList(Block(cfg, "b", device)
                                      for _ in range(cfg.encoder_layers))
-            self.enc_norm = _param((cfg.d_model,), init="zeros",
-                                   device=device)
+            self.enc_norm = _param((cfg.d_model,), ("embed",),
+                                   init="zeros", device=device)
 
     @property
     def device(self) -> torch.device:
@@ -131,8 +135,9 @@ def lm_init(cfg: ModelConfig, *, seed: int = 0, generator=None,
             device="cuda") -> LM:
     """A freshly initialised `LM` on `device`, drawn from `generator` (by
     default a generator on `device` seeded with `seed`). The JAX package's
-    ``lm_init`` also returns the logical-axes tree of its mesh sharding,
-    which has no counterpart on one card."""
+    ``lm_init`` also returns the logical-axes tree of its mesh sharding;
+    here each parameter carries its axes as ``p.logical_axes``
+    (`repro_torch.models.sharding.param_shardings` reads them)."""
     dev = resolve_device(device)
     model = LM(cfg, device=dev)
     if generator is None:

@@ -34,14 +34,14 @@ class RGLRU(nn.Module):
 def init_rglru(mod: nn.Module, cfg, device=None) -> None:
     D = cfg.lru_dim or cfg.d_model
     d = cfg.d_model
-    mod.w_x = _param((d, D), device=device)
-    mod.w_gate = _param((d, D), device=device)
-    mod.conv = _param((cfg.conv_width, D), device=device)
-    mod.w_rg = _param((D, D), device=device)
-    mod.w_ig = _param((D, D), device=device)
-    mod.lam = _param((D,), init="ones", device=device)
-    mod.w_out = _param((D, d), scale=0.02 / np.sqrt(2 * cfg.n_layers),
-                       device=device)
+    mod.w_x = _param((d, D), ("embed_fsdp", "mlp"), device=device)
+    mod.w_gate = _param((d, D), ("embed_fsdp", "mlp"), device=device)
+    mod.conv = _param((cfg.conv_width, D), ("conv", "mlp"), device=device)
+    mod.w_rg = _param((D, D), ("mlp", None), device=device)
+    mod.w_ig = _param((D, D), ("mlp", None), device=device)
+    mod.lam = _param((D,), ("mlp",), init="ones", device=device)
+    mod.w_out = _param((D, d), ("mlp", "embed_fsdp"),
+                       scale=0.02 / np.sqrt(2 * cfg.n_layers), device=device)
 
 
 def _causal_conv(x, kernel, state=None):

@@ -40,17 +40,18 @@ def init_rwkv_time_mix(mod: nn.Module, cfg, device=None) -> None:
     d = cfg.d_model
     H, hd = cfg.n_heads, cfg.hd
     for nm in ("r", "k", "v", "g", "w"):
-        setattr(mod, f"mu_{nm}", _param((d,), init="zeros", device=device))
-    mod.w_r = _param((d, H * hd), device=device)
-    mod.w_k = _param((d, H * hd), device=device)
-    mod.w_v = _param((d, H * hd), device=device)
-    mod.w_g = _param((d, H * hd), device=device)
-    mod.w_w = _param((d, H * hd), scale=0.001, device=device)
-    mod.w0 = _param((H * hd,), init="zeros", device=device)
-    mod.u = _param((H, hd), scale=0.1, device=device)
-    mod.ln_x = _param((H * hd,), init="zeros", device=device)
-    mod.w_out = _param((H * hd, d), scale=0.02 / np.sqrt(2 * cfg.n_layers),
-                       device=device)
+        setattr(mod, f"mu_{nm}", _param((d,), ("embed",), init="zeros",
+                                        device=device))
+    for nm in ("r", "k", "v", "g"):
+        setattr(mod, f"w_{nm}", _param((d, H * hd), ("embed_fsdp", "heads"),
+                                       device=device))
+    mod.w_w = _param((d, H * hd), ("embed_fsdp", "heads"), scale=0.001,
+                     device=device)
+    mod.w0 = _param((H * hd,), ("heads",), init="zeros", device=device)
+    mod.u = _param((H, hd), ("heads", "head_dim"), scale=0.1, device=device)
+    mod.ln_x = _param((H * hd,), ("heads",), init="zeros", device=device)
+    mod.w_out = _param((H * hd, d), ("heads", "embed_fsdp"),
+                       scale=0.02 / np.sqrt(2 * cfg.n_layers), device=device)
 
 
 def _token_shift(x, mu, x_prev):
@@ -101,12 +102,12 @@ def rwkv_time_mix(p, cfg, x, *, state=None):
 
 def init_rwkv_channel_mix(mod: nn.Module, cfg, device=None) -> None:
     d, ff = cfg.d_model, cfg.d_ff
-    mod.mu_k = _param((d,), init="zeros", device=device)
-    mod.mu_r = _param((d,), init="zeros", device=device)
-    mod.w_k = _param((d, ff), device=device)
-    mod.w_r = _param((d, d), device=device)
-    mod.w_v = _param((ff, d), scale=0.02 / np.sqrt(2 * cfg.n_layers),
-                     device=device)
+    mod.mu_k = _param((d,), ("embed",), init="zeros", device=device)
+    mod.mu_r = _param((d,), ("embed",), init="zeros", device=device)
+    mod.w_k = _param((d, ff), ("embed_fsdp", "mlp"), device=device)
+    mod.w_r = _param((d, d), ("embed_fsdp", None), device=device)
+    mod.w_v = _param((ff, d), ("mlp", "embed_fsdp"),
+                     scale=0.02 / np.sqrt(2 * cfg.n_layers), device=device)
 
 
 def rwkv_channel_mix(p, cfg, x, *, state=None):

@@ -591,3 +591,27 @@ def test_rwkv6_step_on_the_card_matches_the_cpu(cuda):
             tol = 0.05 if i < 2 else 1e-2
             assert float((c - w).abs().max() / w.abs().max()) < tol, \
                 (Mod.__name__, i)
+
+
+@pytest.mark.parametrize("arch", ["gemma3-1b", "phi3.5-moe-42b-a6.6b"])
+def test_dry_run_count_and_bytes_equal_the_card_step(cuda, arch):
+    """The dry run's trip-count-scaled FLOP count on ``meta`` equals the
+    same counter over one real train step on the card, and its one-card
+    argument bytes the bytes of the state there (``smoke()`` widths, three
+    periods and a layer more, so that the count scales)."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import dryrun, op_stats
+    from repro_torch.models.config import ShapeConfig
+    cfg = get_config(arch).smoke()
+    cfg = cfg.replace(n_layers=3 * len(cfg.pattern) + 1)
+    tcfg = dryrun.default_train_config(cfg)
+    meta = op_stats.scaled_count(
+        lambda c, S: dryrun.train_step_args(c, tcfg, 2, S), cfg, 64)
+    assert meta["scaled"]["periods"] == cfg.n_layers // len(cfg.pattern)
+    _, _, specs = dryrun.step_cell(cfg, ShapeConfig("t", 64, 2, "train"),
+                                   {"data": 1, "model": 1})
+    step, (state, data) = dryrun.train_step_args(cfg, tcfg, 2, 64,
+                                                 device=cuda)
+    assert dryrun.state_nbytes(state) == {
+        k: dryrun.tree_nbytes(specs[k]) for k in ("params", "opt")}
+    assert op_stats.count(step, state, data)["flops"] == meta["flops"]
