@@ -172,10 +172,34 @@ Phases (any failure exits non-zero; no phase's exception is caught):
    gemma3-1b at train_4k, each with status "ok" and its seconds. Prints a
    ``{"dry_run": ...}`` line; launches no hand kernel.
 
+14. The train state in the reference's layout (after phase 13, its state
+   freed): (a) gemma3-1b at its published widths with Adafactor (the
+   update over each stacked leaf: 4 periods of 6 layers as ``[4, ...]``
+   leaves and the tail of 2 apart) through the trainer's own functions
+   (`build_plane` with phase 10's arguments, `lm_init`,
+   `make_train_state`, `make_train_step`, `save_checkpoint`,
+   `restore_checkpoint`, `load_state_tree`) for 4 steps of 4 x 1,024
+   tokens, a checkpoint in the reference's layout after step 2 (in a
+   temporary directory, deleted after the phase), its manifest's paths,
+   shapes and dtypes equal to the layout spelled from
+   `convert.param_groups` on ``meta``; the checkpoint restored into a
+   state of another seed and steps 3-4 run again, each loss within 1e-2
+   of the straight run's (the embedding backward's atomics rule out bit
+   equality); the plane's builds launch exactly the radix kernels and
+   the steps none; (b) kimi-k2 at smoke (bf16 embedding, ``[2, ...]``
+   leaves), 3 Adafactor steps on the card and on the CPU from the same
+   params: each loss within 1e-2, every Adafactor leaf within 0.05 of its
+   largest magnitude, and a checkpoint written on the card restores on
+   the CPU with every parameter's bits equal. Prints a
+   ``{"train_state": ...}`` line: step seconds, the stacked update's
+   seconds a step, save and restore seconds, the checkpoint's bytes,
+   peak memory, the losses and the phase's wall time.
+
 Standard output ends with a JSON line of per-kernel numbers (each with
 its launches on every path, ``launches_bsp`` for phase 12 (a)'s cold
-build, ``launches_dryrun`` for phase 13's, 0), the card's name and
-power limit, and ``{"ok": true, "device": {...}}``.
+build, ``launches_dryrun`` for phase 13's, 0, ``launches_train_state``
+for phase 14's plane), the card's name and power limit, and ``{"ok":
+true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -291,6 +315,18 @@ NEW_ARCHS = ("kimi-k2-1t-a32b", "phi3.5-moe-42b-a6.6b", "recurrentgemma-2b",
 #: (one token a sequence: seconds each) and one train cell.
 DRY_SHAPE = "decode_32k"
 DRY_TRAIN_CELL = ("gemma3-1b", "train_4k")
+
+#: phase 14: the train state. (a) Adafactor at phase 10's widths and
+#: tokens on phase 10's plane: TS_STEPS steps straight, a checkpoint in the
+#: reference's layout after TS_SAVE_AT of them, restored into a state of
+#: another seed and run on; (b) kimi-k2 at smoke (its published widths are
+#: 17.03 B parameters a layer), TS_SMOKE_STEPS Adafactor steps on the card
+#: against the CPU, each Adafactor leaf within LM_REL of its largest
+#: magnitude (the bf16 rule of the CPU tests).
+TS_STEPS = 4
+TS_SAVE_AT = 2
+TS_SMOKE_ARCH = "kimi-k2-1t-a32b"
+TS_SMOKE_STEPS = 3
 
 #: phase 12: Algorithm 3 on a mesh of BSP_P ranks sharing the card; (b)
 #: and (c) at 2^20 tokens (256 documents of 4,095 tokens and their
@@ -2661,6 +2697,243 @@ def dry_run_phase(dev, lm_step_s: float, moe_step_s: float) -> dict:
             "phase_s": time.perf_counter() - t_phase}
 
 
+# -------------------------------------------------------------- phase 14
+def reference_layout(model) -> list:
+    """(path, shape, dtype) of the JAX package's train state of `model`
+    with Adafactor, in its flatten order, spelled from
+    `convert.param_groups` and Adafactor's factoring rule on ``meta``
+    tensors (no copy of the state, no jax)."""
+    import torch
+    from repro_torch.ckpt.checkpoint import _flatten, _path_str, dtype_name
+    from repro_torch.models.convert import param_groups
+    params = dict(model.named_parameters())
+    meta = torch.device("meta")
+    tree: dict = {}
+
+    def put(root, name, leaf):
+        *path, last = name.split(".")
+        for key in path:
+            root = root.setdefault(key, {})
+        root[last] = leaf
+
+    for ref, (names, stacked) in param_groups(model).items():
+        p = params[names[0]]
+        shape = ((len(names),) if stacked else ()) + tuple(p.shape)
+        put(tree, f"params.{ref}", torch.empty(shape, dtype=p.dtype,
+                                               device=meta))
+        f = ({"vr": shape[:-1], "vc": shape[:-2] + shape[-1:]}
+             if len(shape) >= 2 else {"v": shape})
+        for k, sh in f.items():
+            put(tree, f"opt.f.{ref}.{k}", torch.empty(sh, device=meta))
+    tree["opt"]["step"] = torch.empty((), dtype=torch.int32, device=meta)
+    return [[_path_str(path), list(t.shape), dtype_name(t.dtype)]
+            for path, t in _flatten(tree)]
+
+
+def dir_bytes(path: str) -> int:
+    return sum(f.stat().st_size for f in Path(path).rglob("*")
+               if f.is_file())
+
+
+def adafactor_resume(dev) -> tuple[dict, dict]:
+    """Phase 14 (a): gemma3-1b at its published widths with Adafactor on
+    phase 10's plane, through the trainer's own functions: TS_STEPS steps
+    straight, a checkpoint in the reference layout after TS_SAVE_AT, the
+    checkpoint restored into a state of another seed and its last steps
+    run again; returns its record and the plane's launches."""
+    import math
+    import numpy as np
+    import torch
+    from repro_torch.ckpt import restore_checkpoint, save_checkpoint
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as train_launch
+    from repro_torch.models import lm
+    from repro_torch.train import train_step as ts
+    from repro_torch.train.optim import OptConfig
+    from repro_torch.train.train_step import TrainConfig
+    cuda = dev.type == "cuda"
+    args = train_launch.parser().parse_args(LM_ARGV)
+    cfg = get_config(LM_ARCH)
+    tcfg = TrainConfig(opt=OptConfig(name="adafactor", lr=args.lr),
+                       schedule=cfg.lr_schedule,
+                       warmup=max(TS_STEPS // 20, 1), total_steps=TS_STEPS)
+    if cuda:
+        torch.cuda.reset_peak_memory_stats(dev)
+    zero_launches()
+    t0 = time.perf_counter()
+    plane = train_launch.build_plane(args, vocab=min(cfg.vocab_size, 256),
+                                     device=dev)
+    sync(dev)
+    plane_s = time.perf_counter() - t0
+    plane_launches = dict(ops.LAUNCHES)
+    batches = [plane.batch_at(i) for i in range(TS_STEPS)]
+    del plane
+    model = train_launch.lm_init(cfg, seed=SEED, device=dev)
+    n_params = lm.param_count(model)
+    state = train_launch.make_train_state(model, tcfg)
+    step = train_launch.make_train_step(cfg, tcfg)
+    straight, step_s = [], []
+    with tempfile.TemporaryDirectory(prefix="train_state_") as root:
+        for i, batch in enumerate(batches):
+            t0 = time.perf_counter()
+            state, m = step(state, batch)
+            sync(dev)
+            step_s.append(time.perf_counter() - t0)
+            straight.append(float(m["loss"]))
+            if i + 1 == TS_SAVE_AT:
+                t0 = time.perf_counter()
+                save_checkpoint(root, TS_SAVE_AT,
+                                train_launch.state_tree(state))
+                save_s = time.perf_counter() - t0
+        assert ops.LAUNCHES == plane_launches, ops.LAUNCHES  # steps: none
+        peak_train = torch.cuda.max_memory_allocated(dev) if cuda else None
+        want_layout = reference_layout(model)
+        del state, step, model, m
+        empty_cache(dev)
+        with open(os.path.join(root, f"step_{TS_SAVE_AT:08d}",
+                               "manifest.json")) as f:
+            manifest = json.load(f)
+        layout = [list(x) for x in zip(manifest["paths"],
+                                       manifest["shapes"],
+                                       manifest["dtypes"])]
+        assert layout == want_layout, "manifest differs from the layout"
+        n_full = cfg.n_layers // len(cfg.pattern)
+        blocks = [x for x in layout if "DictKey(key='blocks')" in x[0]
+                  and "DictKey(key='params')" in x[0]]
+        assert blocks and all(x[1][0] == n_full for x in blocks), blocks
+        tails = {x[0].split("DictKey(key='tail'), ")[1].split(",")[0]
+                 for x in layout if "DictKey(key='tail')" in x[0]}
+        assert tails == {"DictKey(key='l0')", "DictKey(key='l1')"}, tails
+        f_leaves = [x for x in layout if "DictKey(key='f')" in x[0]]
+        ckpt_bytes = dir_bytes(root)
+
+        # resume: a state of another seed, the checkpoint restored into it
+        fresh = train_launch.make_train_state(
+            train_launch.lm_init(cfg, seed=SEED + 1, device=dev), tcfg)
+        sync(dev)
+        t0 = time.perf_counter()
+        tree, _ = restore_checkpoint(root, TS_SAVE_AT,
+                                     train_launch.state_tree(fresh))
+        fresh = train_launch.load_state_tree(fresh, tree)
+        sync(dev)
+        restore_s = time.perf_counter() - t0
+        del tree
+    assert int(fresh["opt"]["step"]) == TS_SAVE_AT
+
+    # steps 3-4 again, each stacked group's update timed (synchronised)
+    update_s: list = []
+    _, update = ts.make_optimizer(tcfg.opt)
+
+    def timed_update(*a, **kw):
+        sync(dev)
+        t0 = time.perf_counter()
+        out = update(*a, **kw)
+        sync(dev)
+        update_s[-1] += time.perf_counter() - t0
+        return out
+
+    with mock.patch.object(ts, "make_optimizer",
+                           lambda opt: (None, timed_update)):
+        step = ts.make_train_step(cfg, tcfg)
+    resumed = []
+    for batch in batches[TS_SAVE_AT:]:
+        update_s.append(0.0)
+        fresh, m = step(fresh, batch)
+        resumed.append(float(m["loss"]))
+    assert ops.LAUNCHES == plane_launches, ops.LAUNCHES
+    for got, want in zip(resumed, straight[TS_SAVE_AT:]):
+        assert abs(got - want) < LM_LOSS_ABS, (resumed, straight)
+    assert all(map(math.isfinite, straight)), straight
+    del fresh, step, m, batches
+    empty_cache(dev)
+    return {"arch": LM_ARCH, "params": n_params, "optimizer": "adafactor",
+            "tokens_per_step": LM_BATCH * LM_SEQ_LEN,
+            "plane_build_s": plane_s, "plane_launches": plane_launches,
+            "loss_straight": straight, "loss_resumed": resumed,
+            "step_s": step_s,
+            "step_s_median_2_4": float(np.median(step_s[1:])),
+            "update_s_resumed": update_s, "save_s": save_s,
+            "restore_s": restore_s, "checkpoint_bytes": ckpt_bytes,
+            "leaves": len(layout), "adafactor_leaves": len(f_leaves),
+            "stacked_leaves": len(blocks),
+            "max_memory_allocated_train": peak_train}, plane_launches
+
+
+def adafactor_card_against_cpu(dev) -> dict:
+    """Phase 14 (b): kimi-k2 at smoke (bf16 embedding, stacked ``[2, ...]``
+    leaves) from the same params on the card and the CPU: each loss within
+    LM_LOSS_ABS, every Adafactor leaf within LM_REL of its largest
+    magnitude; a checkpoint written on the card restores on the CPU with
+    every parameter's bits equal."""
+    import copy
+    import numpy as np
+    import torch
+    from repro_torch.ckpt import restore_checkpoint, save_checkpoint
+    from repro_torch.configs import get_config
+    from repro_torch.models import lm
+    from repro_torch.train.optim import OptConfig, tree_leaves
+    from repro_torch.train.train_step import (TrainConfig, load_state_tree,
+                                              make_train_state,
+                                              make_train_step, state_tree)
+    cfg = get_config(TS_SMOKE_ARCH).smoke()
+    host = lm.lm_init(cfg, generator=torch.Generator().manual_seed(SEED),
+                      device="cpu")
+    card = copy.deepcopy(host).to(dev)
+    tcfg = TrainConfig(opt=OptConfig(name="adafactor", lr=1e-3), warmup=0,
+                       total_steps=TS_SMOKE_STEPS + 1)
+    rng = np.random.default_rng(SEED)
+    batches = [{"tokens": rng.integers(0, cfg.vocab_size, (2, 41))}
+               for _ in range(TS_SMOKE_STEPS)]
+    states, losses = {}, {}
+    for name, model in (("cpu", host), ("card", card)):
+        state, step = make_train_state(model, tcfg), make_train_step(cfg,
+                                                                     tcfg)
+        losses[name] = []
+        for batch in batches:
+            state, m = step(state, batch)
+            losses[name].append(float(m["loss"]))
+        states[name] = state
+    for got, want in zip(losses["card"], losses["cpu"]):
+        assert abs(got - want) < LM_LOSS_ABS, losses
+    rel = 0.0
+    for got, want in zip(tree_leaves(states["card"]["opt"]["f"]),
+                         tree_leaves(states["cpu"]["opt"]["f"])):
+        assert got.shape == want.shape and got.device == card.device
+        rel = max(rel, float((got.cpu() - want).abs().max()
+                             / want.abs().max()))
+    assert rel < LM_REL, rel
+    with tempfile.TemporaryDirectory(prefix="train_state_") as root:
+        save_checkpoint(root, TS_SMOKE_STEPS, state_tree(states["card"]))
+        fresh = make_train_state(lm.lm_init(cfg, seed=SEED + 1,
+                                            device="cpu"), tcfg)
+        tree, _ = restore_checkpoint(root, TS_SMOKE_STEPS, state_tree(fresh))
+        load_state_tree(fresh, tree)
+    bits_equal = all(p.cpu().equal(q) for p, q in zip(
+        card.parameters(), fresh["params"].parameters()))
+    assert bits_equal and fresh["params"].embed.dtype == torch.bfloat16
+    return {"arch": TS_SMOKE_ARCH, "widths": "smoke", "loss": losses,
+            "adafactor_max_rel": rel, "tolerance": LM_REL,
+            "checkpoint_bits_equal_on_cpu": bits_equal}
+
+
+def train_state_phase(dev) -> tuple[dict, dict]:
+    """Phase 14: (a) and (b) in this process; returns the
+    {"train_state": ...} record and the phase's kernel launches."""
+    t_phase = time.perf_counter()
+    cuda = dev.type == "cuda"
+    if cuda:
+        sync(dev)               # initialises CUDA when this phase runs first
+    resume, launches = adafactor_resume(dev)
+    if cuda:
+        assert {k for k, v in launches.items() if v} == \
+            PATH_KERNELS["radix"], launches
+    parity = adafactor_card_against_cpu(dev)
+    return {"card": card_line() if cuda else "cpu", "resume": resume,
+            "card_against_cpu": parity,
+            "phase_s": time.perf_counter() - t_phase}, launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2715,6 +2988,9 @@ def main() -> int:
     dry = dry_run_phase(dev, lm["train"]["step_s_median_2_4"],
                         kinds["moe"]["step_s_median_2_4"])
     log(json.dumps({"dry_run": dry}))
+    empty_cache(dev)
+    train_state, ts_launches = train_state_phase(dev)
+    log(json.dumps({"train_state": train_state}))
     for entry in table:
         names = ("bitonic_tile", "bitonic_cross") \
             if entry["name"] == "bitonic_sort" else \
@@ -2729,6 +3005,8 @@ def main() -> int:
         entry["launches_bsp"] = sum(bsp_launches.get(k, 0) for k in names)
         entry["launches_dryrun"] = sum(dry["launches"].get(k, 0)
                                        for k in names)
+        entry["launches_train_state"] = sum(ts_launches.get(k, 0)
+                                            for k in names)
     print(json.dumps({"kernels": table}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -312,6 +312,59 @@ class SuffixArrayIndex:
                                  self.sa.to(torch.int64))
         return self._device_bufs
 
+    def _suffix_cmp(self, starts: np.ndarray, pat: np.ndarray) -> np.ndarray:
+        """Vectorised 3-way prefix compare of suffixes at `starts` vs `pat`:
+        -1 suffix < pat, 0 pat is a prefix of suffix, +1 suffix > pat.
+        One numpy gather + compare per call, over `_host_arrays`."""
+        starts = np.asarray(starts, np.int64).ravel()
+        m, n = len(pat), self.n
+        if m == 0 or n == 0:
+            # empty pattern is a prefix of everything; on an empty index
+            # every probe is past-the-end, i.e. "suffix < pat". Guarded
+            # here so n-1 == -1 can never wrap the gather below.
+            return np.full(len(starts), -1 if (n == 0 and m) else 0, np.int8)
+        text = self._host_arrays()[0]
+        idx = starts[:, None] + np.arange(m, dtype=np.int64)[None, :]
+        in_range = idx < n
+        seg = np.where(in_range, text[np.minimum(idx, n - 1)],
+                       np.int64(-1))       # past-the-end < every real char
+        diff = seg != pat[None, :]
+        any_diff = diff.any(axis=1)
+        first = np.where(any_diff, diff.argmax(axis=1), 0)
+        rows = np.arange(len(starts))
+        out = np.zeros(len(starts), np.int8)
+        s_at, p_at = seg[rows, first], pat[first]
+        out[any_diff & (s_at < p_at)] = -1
+        out[any_diff & (s_at > p_at)] = 1
+        return out
+
+    def _sa_range(self, pat: np.ndarray) -> tuple[int, int]:
+        """[lo, hi) block of SA ranks whose suffixes start with `pat` (an
+        encoded pattern, `_encode_pattern`).
+
+        The scalar reference search of the JAX package: a Python
+        binary-search loop where every probe is one vectorised
+        `_suffix_cmp` call, O(|pat| log n) numpy work per pattern on the
+        host. Nothing serves through it; it is the oracle that
+        `sa_ranges_batch` is held to."""
+        sa = self._host_arrays()[1]
+        n = len(sa)
+        if len(pat) == 0:
+            return 0, n
+        lo = np.zeros(2, np.int64)
+        hi = np.full(2, n, np.int64)
+        while True:
+            active = lo < hi
+            if not active.any():
+                break
+            mid = (lo + hi) // 2
+            c = self._suffix_cmp(sa[np.where(active, mid, 0)], pat)
+            # bound 0 = first suffix ≥ pat, bound 1 = first suffix > pat
+            before = np.array([c[0] < 0, c[1] <= 0])
+            lo = np.where(active & before, mid + 1, lo)
+            hi = np.where(active & ~before, mid, hi)
+        return int(lo[0]), int(lo[1])
+
     def _as_batch(self, patterns) -> QueryBatch:
         return (patterns if isinstance(patterns, QueryBatch)
                 else QueryBatch.encode(self, patterns))

@@ -349,8 +349,9 @@ def suffix_array_bsp(
         _round_cost("SM1", n_loc, m_loc, p, v, dsize, w1 + 2, counters)
         _check_overflow(over, "SM1")
 
-        # `distinct` is every rank's flag, read by the one controller:
-        # every rank follows the same branch.
+        # saca-lint: allow[SCHED001] host-uniform by construction: `distinct`
+        # holds every rank's flag and the one controller ANDs it, so every
+        # rank follows the same branch and the recursion depth is global.
         if bool(distinct.all()):
             sa_rank = xprime                                  # ranks are final
         else:

@@ -17,7 +17,10 @@ A tree is nested dicts, lists and tuples whose leaves are numpy arrays,
 tensors (copied to the host) or scalars. It is flattened in the JAX
 package's order: dict keys sorted, sequences in order, depth first; the
 manifest's ``paths`` spell each leaf's key path the way that package
-does. The reference's ``shardings=`` restore (elastic resharding onto a
+does. A bf16 leaf is written as its raw 2-byte bits (npz dtype ``|V2``,
+manifest dtype ``"bfloat16"``), as that package writes one, and comes
+back as those bits (`BF16_BITS`); no ``ml_dtypes`` is needed. The
+reference's ``shardings=`` restore (elastic resharding onto a
 device mesh) has no counterpart on one card.
 """
 from __future__ import annotations
@@ -30,50 +33,103 @@ import threading
 import numpy as np
 import torch
 
+#: the npz dtype of a bf16 leaf's bits.
+BF16_BITS = np.dtype("V2")
 
-def _flatten(tree, path=()):
-    """(path, leaf) pairs in the JAX package's flatten order."""
-    if isinstance(tree, dict):
-        for key in sorted(tree):
-            yield from _flatten(tree[key], path + (f"DictKey(key={key!r})",))
-    elif isinstance(tree, (list, tuple)):
-        for i, sub in enumerate(tree):
-            yield from _flatten(sub, path + (f"SequenceKey(idx={i})",))
-    else:
-        yield path, tree
+
+def _flatten(tree) -> list:
+    """(path, leaf) pairs in the JAX package's flatten order: depth first,
+    walked with an explicit stack."""
+    out, stack = [], [((), tree)]
+    while stack:
+        path, node = stack.pop()
+        if isinstance(node, dict):
+            subs = [(path + (f"DictKey(key={key!r})",), node[key])
+                    for key in sorted(node)]
+        elif isinstance(node, (list, tuple)):
+            subs = [(path + (f"SequenceKey(idx={i})",), sub)
+                    for i, sub in enumerate(node)]
+        else:
+            out.append((path, node))
+            continue
+        stack.extend(reversed(subs))
+    return out
+
+
+def _rebuild(like, fn):
+    """`like`'s structure (dicts, lists, tuples) with each leaf replaced
+    by ``fn(leaf)``, called in `_flatten`'s order; walked with an explicit
+    stack."""
+    root: list = [None]
+    # (node, the container to put its copy in, the key there)
+    stack = [(like, root, 0)]
+    pending = []            # sequences, filled in as lists, then converted
+    while stack:
+        node, parent, key = stack.pop()
+        if isinstance(node, dict):
+            parent[key] = dict.fromkeys(node)
+            stack.extend((node[k], parent[key], k)
+                         for k in reversed(sorted(node)))
+        elif isinstance(node, (list, tuple)):
+            parent[key] = [None] * len(node)
+            pending.append((type(node), parent, key))
+            stack.extend((sub, parent[key], i)
+                         for i, sub in reversed(list(enumerate(node))))
+        else:
+            parent[key] = fn(node)
+    for kind, parent, key in reversed(pending):     # innermost first
+        if kind is not list:
+            parent[key] = kind(parent[key])
+    return root[0]
 
 
 def _unflatten(like, leaves):
     """`like`'s structure with its leaves taken in order from `leaves`."""
-    if isinstance(like, dict):
-        return {key: _unflatten(like[key], leaves) for key in sorted(like)}
-    if isinstance(like, (list, tuple)):
-        return type(like)(_unflatten(sub, leaves) for sub in like)
-    return next(leaves)
+    return _rebuild(like, lambda _: next(leaves))
 
 
 def _path_str(path) -> str:
     return "(" + ", ".join(path) + ("," if len(path) == 1 else "") + ")"
 
 
-def _to_host(leaf) -> np.ndarray:
+def to_host(leaf) -> np.ndarray:
+    """A host numpy copy of `leaf` (a tensor, bf16 as its bits; or
+    anything numpy takes, as is)."""
     if isinstance(leaf, torch.Tensor):
         leaf = leaf.detach()
+        bf16 = leaf.dtype == torch.bfloat16
+        if bf16:
+            leaf = leaf.view(torch.int16)
         # a copy on the CPU too: the train step writes its state in place
         # while an asynchronous write may still be reading the tree
-        return leaf.numpy().copy() if leaf.device.type == "cpu" \
+        host = leaf.numpy().copy() if leaf.device.type == "cpu" \
             else leaf.cpu().numpy()
+        return host.view(BF16_BITS) if bf16 else host
     return np.asarray(leaf)
+
+
+def dtype_name(dtype) -> str:
+    """The manifest's name of a leaf dtype (numpy's or torch's): the bf16
+    bits and bf16 itself are ``"bfloat16"``."""
+    if isinstance(dtype, torch.dtype):
+        if dtype == torch.bfloat16:
+            return "bfloat16"
+        dtype = torch.empty((), dtype=dtype).numpy().dtype
+    dtype = np.dtype(dtype)
+    return "bfloat16" if dtype == BF16_BITS else str(dtype)
+
+
+def _shape_dtype(leaf) -> tuple[tuple, str]:
+    """(shape, dtype name) of a like-tree leaf, without copying it."""
+    if not isinstance(leaf, (torch.Tensor, np.ndarray)):
+        leaf = np.asarray(leaf)
+    return tuple(leaf.shape), dtype_name(leaf.dtype)
 
 
 def tree_to_host(tree):
     """`tree` with every leaf a host numpy array (tensors copied off their
-    device)."""
-    if isinstance(tree, dict):
-        return {key: tree_to_host(sub) for key, sub in tree.items()}
-    if isinstance(tree, (list, tuple)):
-        return type(tree)(tree_to_host(sub) for sub in tree)
-    return _to_host(tree)
+    device; bf16 as its bits, `BF16_BITS`)."""
+    return _rebuild(tree, to_host)
 
 
 def save_checkpoint(ckpt_dir: str, step: int, tree, *,
@@ -89,7 +145,7 @@ def save_checkpoint(ckpt_dir: str, step: int, tree, *,
         path = os.path.join(ckpt_dir, f"step_{step:08d}")
         tmp = path + ".tmp"
         os.makedirs(tmp, exist_ok=True)
-        flat = list(_flatten(host_tree))
+        flat = _flatten(host_tree)
         leaves = [leaf for _, leaf in flat]
         np.savez(os.path.join(tmp, "arrays.npz"),
                  **{str(i): leaf for i, leaf in enumerate(leaves)})
@@ -98,7 +154,7 @@ def save_checkpoint(ckpt_dir: str, step: int, tree, *,
             "treedef": None,
             "paths": [_path_str(p) for p, _ in flat],
             "shapes": [list(leaf.shape) for leaf in leaves],
-            "dtypes": [str(leaf.dtype) for leaf in leaves],
+            "dtypes": [dtype_name(leaf.dtype) for leaf in leaves],
             "extras": extras or {},
         }
         with open(os.path.join(tmp, "manifest.json"), "w") as f:
@@ -169,26 +225,31 @@ def restore_checkpoint(ckpt_dir: str, step: int, like_tree):
                 raise ValueError(f"checkpoint {path} is missing array {i} "
                                  f"({leaf_name(i)}) — truncated arrays.npz")
             got = data[str(i)]
-            want = _to_host(want)
-            if tuple(got.shape) != tuple(want.shape):
+            want_shape, want_dtype = _shape_dtype(want)
+            m_dtype = m_dtypes[i] if m_dtypes is not None and \
+                i < len(m_dtypes) else None
+            # 2-byte voids are bf16 bits only where the manifest says so
+            stored = "bfloat16" if got.dtype == BF16_BITS and \
+                m_dtype == "bfloat16" else str(got.dtype)
+            if tuple(got.shape) != want_shape:
                 raise ValueError(
                     f"checkpoint {path}, {leaf_name(i)}: stored shape "
-                    f"{tuple(got.shape)} != expected {tuple(want.shape)}")
-            if got.dtype != want.dtype:
+                    f"{tuple(got.shape)} != expected {want_shape}")
+            if stored != want_dtype:
                 raise ValueError(
                     f"checkpoint {path}, {leaf_name(i)}: stored dtype "
-                    f"{got.dtype} != expected {want.dtype}")
+                    f"{got.dtype} != expected {want_dtype}")
             if m_shapes is not None and \
                     tuple(m_shapes[i]) != tuple(got.shape):
                 raise ValueError(
                     f"checkpoint {path}, {leaf_name(i)}: manifest shape "
                     f"{tuple(m_shapes[i])} != stored {tuple(got.shape)} — "
                     f"manifest and arrays.npz disagree (partial overwrite?)")
-            if m_dtypes is not None and i < len(m_dtypes) and \
-                    np.dtype(m_dtypes[i]) != got.dtype:
+            if m_dtype is not None and m_dtype != stored and (
+                    m_dtype == "bfloat16" or np.dtype(m_dtype) != got.dtype):
                 raise ValueError(
                     f"checkpoint {path}, {leaf_name(i)}: manifest dtype "
-                    f"{m_dtypes[i]} != stored {got.dtype} — manifest and "
+                    f"{m_dtype} != stored {got.dtype} — manifest and "
                     f"arrays.npz disagree (partial overwrite?)")
             loaded.append(got)
     return _unflatten(like_tree, iter(loaded)), manifest["extras"]

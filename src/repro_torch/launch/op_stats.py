@@ -29,12 +29,12 @@ allocated):
 There are no collectives on one card.
 
 Trip counts (`scaled_count`): a step of L layers runs the same pattern
-period ⌊L/P⌋ times, so its counts are affine in the number of periods
-(and in the encoder's depth); an RWKV6-only step is affine in its length
-too (the per-position time-mix loop, the 512-token loss chunks). The
-step is counted whole at two depths (no period and one, the L mod P tail
-kept; one and two for an encoder-decoder, and the encoder at one layer
-and two) and, where it applies, at two
+period ⌊L/P⌋ times, so from one period on its counts are affine in the
+number of periods (and in the encoder's depth); an RWKV6-only step is
+affine in its length too (the per-position time-mix loop, the 512-token
+loss chunks). The step is counted whole at two depths (one period and
+two, the L mod P tail kept, and the encoder at one layer and two) and,
+where it applies, at two
 lengths (512 and 1,024), and the counts are extrapolated to the real
 depth and length: exact, as
 `hlo_stats.aggregate`'s ``known_trip_count`` scaling is, because every
@@ -51,7 +51,6 @@ import itertools
 import weakref
 from fractions import Fraction
 
-import numpy as np
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_flatten
@@ -177,11 +176,11 @@ def _points(cfg, seq_len: int, seq_unit: int) -> list:
     P = len(cfg.pattern)
     n_full = cfg.n_layers // P
     out = []
-    # an encoder-decoder keeps a period: its encoder feeds the decoder's
-    # cross-attention only
-    lo = 1 if cfg.is_encdec else 0
-    if n_full > lo + 1:
-        out.append(("periods", (lo, lo + 1), n_full))
+    # affine from one period on: a stacked leaf's Adafactor update runs
+    # once for all its periods and not at all at none, and an
+    # encoder-decoder's encoder feeds the decoder's cross-attention only
+    if n_full > 2:
+        out.append(("periods", (1, 2), n_full))
     if cfg.encoder_layers > 2:
         out.append(("encoder_layers", (1, 2), cfg.encoder_layers))
     if set(cfg.pattern) == {"w"} and seq_len > 3 * seq_unit \
@@ -223,8 +222,8 @@ def _extrapolate(runs: dict, points: list, key: str, pin=()) -> int:
 def scaled_count(build, cfg, seq_len: int, seq_unit: int = SEQ_UNIT
                  ) -> dict:
     """The counts of the step ``fn(*args)`` with ``fn, args = build(cfg,
-    seq_len)``, taken at no period and one (one and two, and the encoder
-    at one layer and two, for an encoder-decoder; an RWKV6-only step at
+    seq_len)``, taken at one period and two (and the encoder at one layer
+    and two, for an encoder-decoder; an RWKV6-only step at
     1, 2 and 3 `seq_unit` s, which must keep the loss's 512-token chunks:
     a multiple of 512, or all three at most 512) and interpolated to
     `cfg`'s depth and `seq_len` (see the module's docstring). With no
@@ -243,8 +242,7 @@ def scaled_count(build, cfg, seq_len: int, seq_unit: int = SEQ_UNIT
                 kw["encoder_layers"] = samples[j]
             else:
                 S = samples[j]
-        with np.errstate(divide="ignore"):     # init scales at no period
-            fn, args = build(cfg.replace(**kw) if kw else cfg, S)
+        fn, args = build(cfg.replace(**kw) if kw else cfg, S)
         runs[corner] = count(fn, *args)
         del fn, args
         listed.append(dict(kw, seq_len=S, **runs[corner]))

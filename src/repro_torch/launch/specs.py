@@ -19,7 +19,9 @@ import torch
 from ..models.config import ModelConfig, ShapeConfig
 from ..models.layers import COMPUTE_DTYPE
 from ..models.lm import LM, init_decode_states
-from ..models.sharding import ShardingRules, param_shardings, shard_shape
+from ..models.convert import param_groups
+from ..models.sharding import (ShardingRules, logical_to_shard_shape,
+                               param_shardings, shard_shape)
 from ..train.optim import OptConfig
 from ..train.train_step import TrainConfig, make_train_state
 
@@ -83,28 +85,40 @@ def params_shardings(model: LM, mesh_shape: dict,
             in param_shardings(model, mesh_shape, rules).items()}
 
 
-def opt_state_shardings(p_specs: dict, opt_state: dict, opt_name: str,
-                        mesh_shape: dict) -> dict:
+def opt_state_shardings(model: LM, p_specs: dict, opt_state: dict,
+                        opt_name: str, mesh_shape: dict,
+                        rules: ShardingRules | None = None) -> dict:
     """The optimizer state's specs from the parameters': AdamW's and
-    SGD+momentum's moments as their parameter; Adafactor's ``vr`` drops
-    the parameter's last dimension and ``vc`` its second-last, each with
-    its spec entry; the step replicated."""
+    SGD+momentum's moments as their parameter (a tensor a layer);
+    Adafactor's ``f`` by the JAX package's leaves, a stacked leaf laid
+    out by its logical axes with the leading ``"layers"`` (ruled None),
+    ``vr`` dropping the leaf's last dimension and ``vc`` its second-last,
+    each with its spec entry; the step replicated."""
     step = spec_of(opt_state["step"], (), mesh_shape)
     if opt_name in ("adamw", "sgdm"):
         out = {k: {n: spec_of(t, p_specs[n].spec, mesh_shape)
                    for n, t in opt_state[k].items()}
                for k in ("m", "v") if k in opt_state}
         return dict(out, step=step)
+    groups = param_groups(model)
+    params = dict(model.named_parameters())
 
-    def fac(name, leaf):
-        spec = p_specs[name].spec
+    def fac(ref, leaf):
+        names, stacked = groups[ref]
+        spec = p_specs[names[0]].spec
+        if stacked:
+            p = params[names[0]]
+            _, spec = logical_to_shard_shape(
+                (len(names),) + tuple(p.shape),
+                ("layers",) + tuple(p.logical_axes), mesh_shape, rules)
         if "vr" in leaf:
             return {"vr": spec_of(leaf["vr"], spec[:-1], mesh_shape),
                     "vc": spec_of(leaf["vc"], spec[:-2] + spec[-1:],
                                   mesh_shape)}
         return {"v": spec_of(leaf["v"], spec, mesh_shape)}
 
-    return {"f": {n: fac(n, leaf) for n, leaf in opt_state["f"].items()},
+    return {"f": {ref: fac(ref, leaf)
+                  for ref, leaf in opt_state["f"].items()},
             "step": step}
 
 
@@ -118,8 +132,8 @@ def train_state_shardings(tcfg: TrainConfig, state: dict, mesh_shape: dict,
                           rules: ShardingRules | None = None) -> dict:
     p_specs = params_shardings(state["params"], mesh_shape, rules)
     out = {"params": p_specs,
-           "opt": opt_state_shardings(p_specs, state["opt"], tcfg.opt.name,
-                                      mesh_shape)}
+           "opt": opt_state_shardings(state["params"], p_specs, state["opt"],
+                                      tcfg.opt.name, mesh_shape, rules)}
     if "ef_error" in state:
         out["ef_error"] = {n: spec_of(t, p_specs[n].spec, mesh_shape)
                            for n, t in state["ef_error"].items()}

@@ -10,9 +10,11 @@
 The port of `repro.launch.train`. --smoke runs the reduced same-family
 config; without it the full config is used. `--device` (default cuda)
 picks the card; the run raises without one unless given ``--device cpu``.
-Checkpoints every --ckpt-every steps with an async writer; --resume
-continues from the port's latest committed step (its leaves come back
-onto the device) with deterministic data skip-ahead.
+Checkpoints every --ckpt-every steps with an async writer, in the JAX
+package's train-state layout; --resume continues from the latest
+committed step under --ckpt-dir, written by this launcher or by
+`repro.launch.train` (its leaves come back onto the device), with
+deterministic data skip-ahead: the batches are that package's.
 
 Data goes through `repro_torch.data.pipeline.TrainingDataPlane`, every
 index on the same device: the synthetic corpus arrives as document shards

@@ -33,17 +33,34 @@ class OptConfig:
 def tree_map(fn, tree, *rest):
     """`fn` over the leaves of `tree` (nested dicts); `rest` are walked
     alongside, and the subtree of each at a leaf of `tree` is passed whole
-    (as ``jax.tree_util.tree_map`` does with a prefix tree)."""
-    if isinstance(tree, dict):
-        return {k: tree_map(fn, tree[k], *(r[k] for r in rest))
-                for k in tree}
-    return fn(tree, *rest)
+    (as ``jax.tree_util.tree_map`` does with a prefix tree). Walked with
+    an explicit stack; the keys keep their order."""
+    if not isinstance(tree, dict):
+        return fn(tree, *rest)
+    out: dict = {}
+    stack = [(tree, rest, out)]
+    while stack:
+        node, others, dst = stack.pop()
+        for k, sub in node.items():
+            subs = tuple(o[k] for o in others)
+            if isinstance(sub, dict):
+                dst[k] = {}
+                stack.append((sub, subs, dst[k]))
+            else:
+                dst[k] = fn(sub, *subs)
+    return out
 
 
 def tree_leaves(tree) -> list:
-    if isinstance(tree, dict):
-        return [leaf for k in tree for leaf in tree_leaves(tree[k])]
-    return [tree]
+    """The leaves of `tree` (nested dicts), depth first in key order."""
+    out, stack = [], [tree]
+    while stack:
+        node = stack.pop()
+        if isinstance(node, dict):
+            stack.extend(reversed(list(node.values())))
+        else:
+            out.append(node)
+    return out
 
 
 def _pick(out, i: int):

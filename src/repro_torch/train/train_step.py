@@ -3,15 +3,30 @@
 microbatch gradient accumulation.
 
 The port of `repro.train.train_step`. A train state is ``{"params": LM,
-"opt": optimizer state, ["ef_error": tree]}``; the optimizer's trees are
-flat dicts keyed by the LM's parameter names. The step applies the
+"opt": optimizer state, ["ef_error": tree]}``. The step applies the
 optimizer's update function (which returns new tensors, as the JAX
-package's does) one parameter at a time and writes each result into the
-LM's parameter and the state's tensors in place, so the LM passed to
+package's does) one leaf of the JAX package's layout at a time
+(`repro_torch.models.convert.param_groups`: a pattern position's layers
+stacked, ``[⌊L/P⌋, ...]``) and writes each result into the LM's
+parameters and the state's tensors in place, so the LM passed to
 `make_train_state` is the one that trains and the update holds one
 leaf's new tensors at a time, not a second copy of every tree.
-`state_tree` and `load_state_tree` give the checkpointable tree of a
-state and put one back onto the state's device.
+
+- AdamW and SGD+momentum are elementwise: their moments and the
+  error-feedback residuals are kept a tensor a layer, flat dicts keyed by
+  the LM's parameter names, and updated layer by layer.
+- Adafactor's factored moments and its update clip span the stacked
+  leaf, so its ``f`` is the JAX package's, keyed by that package's leaf
+  names (``"blocks.l0.attn.wq"``), and a stacked leaf is updated whole:
+  its layers' parameters and gradients are stacked, updated and copied
+  back.
+- The int8 error-feedback quantises each stacked leaf with one scale, as
+  the JAX package does.
+
+`state_tree` gives the state as the JAX package's tree (what its
+`make_train_state` gives and its checkpoints hold) and `load_state_tree`
+puts such a tree back onto the state's device, so a checkpoint of either
+package resumes in the other.
 
 Remat (`TrainConfig.remat`) is a memory policy with the same values:
 "full" wraps the whole loss in `torch.utils.checkpoint` (the backward
@@ -24,11 +39,12 @@ from __future__ import annotations
 import functools
 from dataclasses import dataclass, field
 
-import numpy as np
 import torch
 from torch.utils.checkpoint import (checkpoint,
                                     create_selective_checkpoint_contexts)
 
+from ..models.convert import (load_train_state_from_jax, param_groups,
+                              train_state_to_jax)
 from ..models.lm import lm_loss
 from .optim import (OptConfig, clip_by_global_norm,
                     compressed_grads_with_feedback, make_optimizer,
@@ -72,12 +88,30 @@ def _named(model) -> dict:
     return dict(model.named_parameters())
 
 
+def _stack(ts: list, stacked: bool) -> torch.Tensor:
+    return torch.stack(ts) if stacked else ts[0]
+
+
+def _unstack(t: torch.Tensor, stacked: bool) -> list:
+    return list(t) if stacked else [t]
+
+
 def make_train_state(params, tcfg: TrainConfig) -> dict:
     """The train state of the `LM` `params` (which the step then trains
     in place)."""
     init, _ = make_optimizer(tcfg.opt)
     leaves = {k: p.detach() for k, p in _named(params).items()}
-    state = {"opt": init(leaves), "params": params}
+    if tcfg.opt.name == "adafactor":
+        # one entry per stacked leaf, made from views of its shape that
+        # hold no memory
+        like = {}
+        for ref, (names, stacked) in param_groups(params).items():
+            p = leaves[names[0]]
+            like[ref] = p.expand((len(names),) + p.shape) if stacked else p
+        opt = init(like)
+    else:
+        opt = init(leaves)
+    state = {"opt": opt, "params": params}
     if tcfg.opt.compress:
         state["ef_error"] = tree_map(
             lambda p: torch.zeros(p.shape, dtype=torch.float32,
@@ -85,22 +119,11 @@ def make_train_state(params, tcfg: TrainConfig) -> dict:
     return state
 
 
-def state_tree(state: dict) -> dict:
-    """The state as a tree of tensors (the LM as its named parameters),
-    for `repro_torch.ckpt.save_checkpoint`."""
-    return dict(state, params={k: p.detach()
-                               for k, p in _named(state["params"]).items()})
-
-
-def load_state_tree(state: dict, tree: dict) -> dict:
-    """Copy a restored tree (numpy leaves, `state_tree`'s structure) into
-    `state` on its device; returns `state`."""
-    def put(dst, src):
-        with torch.no_grad():
-            dst.copy_(torch.as_tensor(np.asarray(src)))
-        return dst
-    tree_map(put, state_tree(state), tree)
-    return state
+#: the state as the JAX package's train-state tree (host numpy arrays), for
+#: `repro_torch.ckpt.save_checkpoint`.
+state_tree = train_state_to_jax
+#: copy a restored tree of `state_tree`'s structure into a state, in place.
+load_state_tree = load_train_state_from_jax
 
 
 def _to_device(batch: dict, device) -> dict:
@@ -156,28 +179,49 @@ def make_train_step(cfg, tcfg: TrainConfig):
             metrics = dict(metrics,
                            masked_frac=1.0 - torch.mean(batch["loss_mask"]))
         grads, gnorm = clip_by_global_norm(grads, tcfg.opt.clip_norm)
-        if tcfg.opt.compress:
-            grads, new_err = compressed_grads_with_feedback(
-                grads, state["ef_error"])
         lr = sched(state["opt"]["step"])
         opt = state["opt"]
+        factored = tcfg.opt.name == "adafactor"
+        params = {k: p.detach() for k, p in _named(model).items()}
         step = None
+
+        def update(key, p, g):
+            """The optimizer on one leaf; its state written back in place."""
+            nonlocal step
+            leaf = {k: tree if k == "step" else {key: tree[key]}
+                    for k, tree in opt.items()}
+            new_p, new_leaf = opt_update({key: p}, {key: g}, leaf, lr=lr)
+            for k, tree in new_leaf.items():
+                if k != "step":
+                    tree_map(lambda dst, src: dst.copy_(src), opt[k][key],
+                             tree[key])
+            step = new_leaf["step"]
+            return new_p[key]
+
         with torch.no_grad():
-            for k, p in _named(model).items():
-                p = p.detach()
-                leaf = {key: tree if key == "step" else {k: tree[k]}
-                        for key, tree in opt.items()}
-                new_p, new_leaf = opt_update({k: p}, {k: grads.pop(k)},
-                                             leaf, lr=lr)
-                p.copy_(new_p[k])
-                for key, tree in new_leaf.items():
-                    if key != "step":
-                        tree_map(lambda dst, src: dst.copy_(src),
-                                 opt[key][k], tree[k])
-                step = new_leaf["step"]
+            for ref, (names, stacked) in param_groups(model).items():
+                ps = [params[n] for n in names]
+                # each gradient is dropped once its update is done
+                gs = {n: grads.pop(n) for n in names}
+                if tcfg.opt.compress:
+                    errs = [state["ef_error"][n] for n in names]
+                    new_g, new_e = compressed_grads_with_feedback(
+                        {ref: _stack([gs.pop(n) for n in names], stacked)},
+                        {ref: _stack(errs, stacked)})
+                    for dst, src in zip(errs, _unstack(new_e[ref], stacked)):
+                        dst.copy_(src)
+                    gs = dict(zip(names, _unstack(new_g.pop(ref), stacked)))
+                if factored:
+                    new_p = update(ref, _stack(ps, stacked), _stack(
+                        [gs.pop(n) for n in names], stacked))
+                    for dst, src in zip(ps, _unstack(new_p, stacked)):
+                        dst.copy_(src)
+                else:
+                    for n, p in zip(names, ps):
+                        p.copy_(update(n, p, gs.pop(n)))
         new_state = {"opt": dict(opt, step=step), "params": model}
         if tcfg.opt.compress:
-            new_state["ef_error"] = new_err
+            new_state["ef_error"] = state["ef_error"]
         metrics = dict(metrics, loss=loss, grad_norm=gnorm, lr=lr)
         return new_state, metrics
 

@@ -499,6 +499,52 @@ def test_lm_on_the_card_matches_the_cpu_path(cuda):
     assert next(card.parameters()).device.type == "cuda"
 
 
+def test_stacked_adafactor_steps_on_the_card_match_the_cpu(cuda, tmp_path):
+    """kimi-k2 at smoke (a bf16 embedding; Adafactor over the stacked
+    ``[2, ...]`` leaves): 3 steps on the card and on the CPU from the same
+    params, each loss within 1e-2 and every Adafactor leaf within 0.05 of
+    its largest magnitude (the CPU tests' rule for bf16 products); then a
+    checkpoint of the card's state restores on the CPU, bf16 bits equal."""
+    from repro_torch.ckpt import restore_checkpoint, save_checkpoint
+    from repro_torch.models import lm
+    from repro_torch.train.optim import OptConfig, tree_leaves
+    from repro_torch.train.train_step import (TrainConfig, load_state_tree,
+                                              make_train_state,
+                                              make_train_step, state_tree)
+    cfg, host, card = _lm_pair(cuda, "kimi_k2_1t_a32b")
+    tcfg = TrainConfig(opt=OptConfig(name="adafactor", lr=1e-3), warmup=0,
+                       total_steps=4)
+    rng = np.random.default_rng(3)
+    batches = [{"tokens": rng.integers(0, cfg.vocab_size, (2, 33))}
+               for _ in range(3)]
+    states, losses = {}, {}
+    for name, model in (("cpu", host), ("card", card)):
+        step, state = make_train_step(cfg, tcfg), make_train_state(model,
+                                                                    tcfg)
+        losses[name] = []
+        for batch in batches:
+            state, m = step(state, batch)
+            losses[name].append(float(m["loss"]))
+        states[name] = state
+    for got, want in zip(losses["card"], losses["cpu"]):
+        assert abs(got - want) < 1e-2, losses
+    f_card, f_cpu = (tree_leaves(states[k]["opt"]["f"])
+                     for k in ("card", "cpu"))
+    assert len(f_card) == len(f_cpu) > 0
+    for got, want in zip(f_card, f_cpu):
+        assert got.device.type == "cuda" and got.shape == want.shape
+        scale = float(want.abs().max())
+        assert float((got.cpu() - want).abs().max()) <= 0.05 * scale
+    save_checkpoint(str(tmp_path), 3, state_tree(states["card"]))
+    fresh = make_train_state(lm.lm_init(cfg, seed=9, device="cpu"), tcfg)
+    tree, _ = restore_checkpoint(str(tmp_path), 3, state_tree(fresh))
+    load_state_tree(fresh, tree)
+    assert fresh["params"].embed.dtype == torch.bfloat16
+    for (n, p), (_, q) in zip(card.named_parameters(),
+                              fresh["params"].named_parameters()):
+        assert p.cpu().equal(q), n
+
+
 def test_lm_decode_matches_forward_past_the_window_on_the_card(cuda):
     from repro_torch.launch.serve import prefill_then_decode
     from repro_torch.models import lm

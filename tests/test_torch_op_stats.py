@@ -8,10 +8,9 @@ hlo_stats`, on the CPU and the ``meta`` device.
   that it scales (three periods and a tail, three encoder layers), the
   scaled count of the ``remat="full"`` train step equals the whole step's
   count exactly in FLOPs, for all ten configs, and its eager bytes within
-  1e-5 relative (they are off by a few scalars' bytes where the step at
-  no period differs in kind: an MoE's aux loss then takes no gradient;
-  and autograd's accumulation of the per-position gradients of rwkv6's
-  loop is not a polynomial in the length to the byte); the same for a
+  1e-5 relative (autograd's accumulation of the per-position gradients
+  of rwkv6's loop is not a polynomial in the length to the byte); the
+  same for a
   prefill and a decode step. rwkv6 scales its length too (at 64-token
   units, below one loss chunk).
 * The predicted peak beside the whole step's tracked peak.

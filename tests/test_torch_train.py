@@ -357,10 +357,8 @@ def test_checkpoint_resume_bitexact(tmp_path):
     for i in range(10, 20):
         a, _ = step(a, pipe.batch_at(i))
         b, _ = step(b, pipe.batch_at(i))
-    la = jax.tree_util.tree_leaves(optim.tree_map(
-        lambda x: x.numpy(), state_tree(a)))
-    lb = jax.tree_util.tree_leaves(optim.tree_map(
-        lambda x: x.numpy(), state_tree(b)))
+    la = jax.tree_util.tree_leaves(state_tree(a))
+    lb = jax.tree_util.tree_leaves(state_tree(b))
     assert len(la) == len(lb) > 0
     for x, y in zip(la, lb):
         assert np.array_equal(x, y)
