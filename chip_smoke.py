@@ -20,16 +20,22 @@ Phases (any failure exits non-zero; no phase's exception is caught):
    top-pass keys), N up to 2^24, and the offsets scanned from it against
    the staged route's;
    the scatter pass at blocks of 1,024 and 4,096 and the LSD argsort, also
-   against stable `torch.sort` passes).
+   against stable `torch.sort` passes; both forms of the one-pass dense
+   rank at N = 1, a tile less one, a tile, a tile and one, 2^20 + 3 and
+   2^24, rows staged (W = 3) and read in place (W = 7), a key prefix, a
+   constant run across 300 tiles, distinct rows, gathered rows of 1, 2,
+   17 words and of the cap, positions sorted and permuted, each twice).
 3. Main path at real size: a seeded corpus of 4,096 byte documents
    (sigma = 256, 14,667,776 encoded tokens; about 10% of the documents copy
    a 512-byte passage of another one) goes through
    `SuffixArrayIndex.from_docs` on the card with ``sort_impl="auto"``
-   (= "radix" on a CUDA device) and with an explicit ``sort_impl="kernel"``
-   (the bitonic sort and `seg_boundary`). Each build must have launched
-   exactly its path's kernels; the SA must pass an O(n) check and every
-   impl ("kernel", "radix", "torch") must give the same SA. Then five warm
-   builds of the default plan, timed (``builds_s["default"]``).
+   (= "radix" on a CUDA device: the radix sort and the gathered dense
+   rank) and with an explicit ``sort_impl="kernel"`` (the bitonic sort and
+   the rows form of the dense rank). Each build must have launched
+   exactly its path's kernels (`PATH_KERNELS`); the SA must pass an O(n)
+   check and every impl ("kernel", "radix", "torch") must give the same
+   SA. Then five warm builds of the default plan, timed
+   (``builds_s["default"]``).
 4. Queries: 4,096 patterns of 32-512 tokens, half planted, through
    `count_batch` and `locate_batch`; every planted pattern hits, and 16
    counts equal a direct scan of the text on the card.
@@ -46,7 +52,11 @@ Phases (any failure exits non-zero; no phase's exception is caught):
    one cumsum); the bitonic row sort at every level of one
    "kernel" build (the real window rows of each level), beside its bound,
    its launch count, the one-stage-per-launch schedule and `torch.sort` of
-   the level's packed words.
+   the level's packed words; the dense rank's rows form on the level-0
+   samples beside the `seg_boundary` + stitch route it replaced, and its
+   gathered form at both call sites of every level of one default build
+   beside the stock gathers and cumsum it replaced (one
+   `{"dense_rank_level": ...}` line a level).
 7. Trace: one more kernel-path build, one radix build and one sparse build
    under `torch.profiler`: device time by kernel and the device's idle
    share of each build's wall time.
@@ -336,10 +346,10 @@ BSP_DOCS, BSP_DOC_LEN = 256, 4095
 BSP_OTHER = (("torch", 8), ("bitonic", 8), ("radix", 3))
 
 #: kernels each path must launch, and no others.
-PATH_KERNELS = {"kernel": {"bitonic_tile", "bitonic_cross", "seg_boundary"},
-                "radix": {"radix_hist", "radix_scatter"},
-                "sparse": {"radix_hist", "radix_scatter"},
-                "bsp": {"radix_hist", "radix_scatter"}}
+PATH_KERNELS = {"kernel": {"bitonic_tile", "bitonic_cross", "dense_rank_rows"},
+                "radix": {"radix_hist", "radix_scatter", "dense_rank_gather"},
+                "sparse": {"radix_hist", "radix_scatter", "dense_rank_gather"},
+                "bsp": {"radix_hist", "radix_scatter", "dense_rank_gather"}}
 #: every kernel the builds of phase 8 must launch between them.
 SERVING_KERNELS = PATH_KERNELS["radix"] | PATH_KERNELS["sparse"]
 
@@ -448,9 +458,57 @@ def timed_once(fn, dev):
     return 1e3 * (time.perf_counter() - t0), out
 
 
-def plain_seg(rows, num_keys=None, block=512):
+def seg_boundary_stitch(rows, block: int = 512):
+    """Dense ranks the way `ops.dense_rank_sorted` took them before the
+    one-pass kernel: `seg_boundary` on rows padded to whole blocks, then a
+    stitch of stock ops (an exclusive cumsum of the block totals, the
+    edge-row compare, a second cumsum, the broadcast add). Timed beside the
+    one-pass kernel."""
+    import torch
+    from repro_torch.kernels import ops
+    n, w = rows.shape
+    pad = (-n) % block
+    rows_p = torch.cat([rows, rows[-1:].expand(pad, w)]) if pad else rows
+    _, csum, totals = ops.seg_boundary(rows_p, w, block)
+    nb = rows_p.shape[0] // block
+    base = torch.cumsum(totals, 0, dtype=torch.int32) - totals
+    same = (rows_p[block - 1:-1:block] == rows_p[block::block]).all(dim=1)
+    corr = torch.zeros(nb, dtype=torch.int32, device=rows.device)
+    corr[1:] = torch.cumsum(same, 0, dtype=torch.int32)
+    ranks = ((base - corr)[:, None] + csum.view(nb, block) - 1) \
+        .reshape(-1)[:n]
+    return ranks, ranks[-1] + 1
+
+
+def stock_rank(words, pos):
+    """The stock sequence the gathered dense rank replaced at both call
+    sites of the "radix" build: `rows_neq` (two gathers and a compare a
+    word), then an int64 cumsum. Returns (ranks, is_start)."""
+    import torch
     from repro_torch.kernels import ref
-    return ref.seg_boundary_ref(rows, num_keys, block)
+    is_start = torch.ones(len(pos), dtype=torch.bool, device=pos.device)
+    is_start[1:] = ref.rows_neq(words, pos[1:], pos[:-1])
+    return torch.cumsum(is_start, 0) - 1, is_start
+
+
+def gather_bytes(words, pos) -> int:
+    """Bytes the gathered dense rank must move on these inputs: pos (8 a
+    row), ranks and is_start (5 a row), and a 32-byte sector for each word
+    a row needs: its words up to the first that differs from its
+    predecessor's or its successor's, whichever comes later."""
+    import torch
+    n, k = len(pos), len(words)
+    need = torch.zeros(n + 1, dtype=torch.int64, device=pos.device)
+    if n > 1:
+        first = torch.full((n - 1,), k, dtype=torch.int64, device=pos.device)
+        same = torch.ones(n - 1, dtype=torch.bool, device=pos.device)
+        for j, word in enumerate(words):
+            neq = word[pos[1:]] != word[pos[:-1]]
+            first[same & neq] = j + 1
+            same &= ~neq
+        need[1:n] = first
+    sectors = int(torch.maximum(need[:-1], need[1:]).sum())
+    return 13 * n + 32 * sectors
 
 
 def zero_launches() -> None:
@@ -550,13 +608,74 @@ def kernels_against_plain(dev, scale: int = 1) -> None:
             for g, w in zip(ops.seg_boundary(rows, num_keys),
                             ref.seg_boundary_ref(rows, num_keys)):
                 require_equal(f"seg_boundary {kind}", g, w)
-            for m in (n, n - 333):                 # not a multiple of 512
-                got, nd = ops.dense_rank_sorted(rows[:m], num_keys)
-                with mock.patch.object(ops, "seg_boundary", plain_seg):
-                    want, want_nd = ops.dense_rank_sorted(rows[:m], num_keys)
-                require_equal(f"dense_rank_sorted {kind} N={m}", got, want)
-                assert int(nd) == int(want_nd), kind
+    dense_rank_against_plain(dev, scale)
     radix_against_plain(dev, scale)
+
+
+def dense_rank_against_plain(dev, scale: int = 1) -> None:
+    """Both forms of `dense_rank.cu` against their plain versions: N from
+    one row to 2^24 (a tile less one, a tile, a tile and one), rows staged
+    in shared memory (W = 3) and compared in place (W = 7), long and short
+    runs, a key prefix, one constant run across 300 tiles, all rows
+    distinct; gathered rows of 1, 2 and 17 words and of the cap's, their
+    positions sorted and permuted. Each case runs twice in a row (the
+    second call on fresh scratch)."""
+    import torch
+    from repro_torch.core.dcv_torch import _order_from_words
+    from repro_torch.kernels import dense_rank, ops, ref
+    tile = dense_rank.TILE_ROWS
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    ns = [n if n <= tile + 1 else n // scale
+          for n in (1, tile - 1, tile, tile + 1, 2 ** 20 + 3, 2 ** 24)]
+    checked = 0
+
+    def rows_case(name, rows, num_keys):
+        nonlocal checked
+        want = ref.dense_rank_rows_ref(rows, num_keys)
+        for _ in range(2):
+            for got, w in zip(ops.dense_rank_sorted(rows, num_keys), want):
+                require_equal(f"dense_rank_rows {name}", got, w)
+            checked += 1
+
+    def gather_case(name, words, pos):
+        nonlocal checked
+        want = ref.dense_rank_gathered_ref(words, pos)
+        for _ in range(2):
+            for got, w in zip(ops.dense_rank_gathered(words, pos), want):
+                require_equal(f"dense_rank_gather {name}", got, w)
+            checked += 1
+
+    for n in ns:
+        for w in (3, 7):
+            for hi in (4, 1024):
+                rows = ref.bitonic_sort_ref(torch.randint(
+                    0, hi, (n, w), generator=g, device=dev,
+                    dtype=torch.int32))
+                for num_keys in (w, w - 1):
+                    rows_case(f"N={n} W={w} hi={hi} keys={num_keys}", rows,
+                              num_keys)
+        for k, hi in ((1, 2 ** 45), (1, 64), (2, 16), (17, 2)):
+            words = [torch.randint(0, hi, (2 * n,), generator=g, device=dev)
+                     for _ in range(k)]
+            pos = _order_from_words(words)[::2].contiguous()
+            gather_case(f"N={n} K={k} hi={hi}", words, pos)
+            perm = torch.randperm(n, generator=g, device=dev)
+            gather_case(f"N={n} K={k} hi={hi} permuted", words, pos[perm])
+    n = 300 * tile + 17
+    const = torch.full((n, 3), 5, dtype=torch.int32, device=dev)
+    distinct = torch.arange(n, dtype=torch.int32, device=dev)[:, None] \
+        .repeat(1, 3)
+    for name, rows in (("constant", const), ("distinct", distinct)):
+        rows_case(f"{name} N={n}", rows, 3)
+        gather_case(f"{name} N={n}", [rows[:, 0].long()],
+                    torch.arange(n, device=dev))
+    k = dense_rank.MAX_WORDS
+    for n in (tile + 1, 2 ** 16 + 5):
+        words = [torch.zeros(n, dtype=torch.int64, device=dev)] * (k - 1)
+        words.append(torch.randint(0, 2, (n,), generator=g, device=dev))
+        gather_case(f"N={n} K={k} (the cap)", words,
+                    _order_from_words(words[-1:]))
+    log(f"dense_rank against plain: {checked} launches equal")
 
 
 def bitonic_launches_against_plain(dev, rng) -> None:
@@ -717,7 +836,8 @@ def main_path(dev, docs):
     launched(dev, "radix", launches)
     check_suffix_array(idx.text, idx.sa)
 
-    # the explicit "kernel" path: the bitonic sort and seg_boundary
+    # the explicit "kernel" path: the bitonic sort and the rows form of the
+    # dense rank
     zero_launches()
     sync(dev)
     t0 = time.perf_counter()
@@ -1092,20 +1212,28 @@ def kernel_times(dev, levels, launches, bandwidth: float):
     in_d = dcv_torch._cover_constants(v, dev)[1]
     samples = out[:n_v, :v][in_d[order % v]].contiguous()
     m = samples.shape[0]
-    rank_ms = time_ms(lambda: ops.dense_rank_sorted(samples), dev, reps=5)
-    ranks, _ = ops.dense_rank_sorted(samples)
-    pad = (-m) % 512
-    padded = torch.cat([samples, samples[-1:].expand(pad, v)])
-    seg_ms = time_ms(lambda: ops.seg_boundary(padded), dev, reps=5)
-    with mock.patch.object(ops, "seg_boundary", plain_seg):
-        plain_rank_ms = time_ms(lambda: ops.dense_rank_sorted(samples), dev)
-        rank_err = require_equal("dense_rank_sorted level 0", ranks,
-                                 ops.dense_rank_sorted(samples)[0])
+    rank_ms = time_ms(lambda: ops.dense_rank_sorted(samples), dev, reps=20)
+    ranks, n_distinct = ops.dense_rank_sorted(samples)
+    plain_rank_ms = time_ms(lambda: ref.dense_rank_rows_ref(samples), dev,
+                            reps=3)
+    want, want_nd = ref.dense_rank_rows_ref(samples)
+    rank_err = require_equal("dense_rank_sorted level 0", ranks, want)
+    assert int(n_distinct) == int(want_nd)
+    stitch_ms = time_ms(lambda: seg_boundary_stitch(samples), dev, reps=20)
+    require_equal("seg_boundary + stitch level 0",
+                  seg_boundary_stitch(samples)[0], want)
     lib_rank_ms = time_ms(lambda: torch.unique_consecutive(
         samples, dim=0, return_inverse=True), dev, reps=3)
     rank_bytes = samples.numel() * 4 + m * 4
+    pad = (-m) % 512
+    padded = torch.cat([samples, samples[-1:].expand(pad, v)])
+    seg_ms = time_ms(lambda: ops.seg_boundary(padded), dev, reps=20)
+    plain_seg_ms = time_ms(lambda: ref.seg_boundary_ref(padded), dev, reps=3)
+    seg_err = max(require_equal("seg_boundary level 0", g, w) for g, w in
+                  zip(ops.seg_boundary(padded), ref.seg_boundary_ref(padded)))
     seg_bytes = padded.numel() * 4 + 2 * padded.shape[0] * 4 \
         + padded.shape[0] // 512 * 4
+    del padded
 
     # radix: one pass of the level-0 window word, then the whole argsort
     bits = dcv_torch._word_bits(v, lo, hi)
@@ -1215,16 +1343,28 @@ def kernel_times(dev, levels, launches, bandwidth: float):
         {"name": "seg_boundary", "route": "cuda",
          "source": src + "seg_boundary.cu",
          "replaces": "src/repro/kernels/seg_boundary.py:18",
-         "launches": launches["seg_boundary"], "max_abs_err": rank_err,
+         "launches": launches["seg_boundary"], "max_abs_err": seg_err,
+         "function": f"the TPU kernel's contract alone: per-512-row-block "
+                     f"flags, in-block cumsums and totals of int32[{m}, {v}] "
+                     f"level-0 sample rows padded to a whole block (off every "
+                     f"path)",
+         "ms": seg_ms, "plain_ms": plain_seg_ms,
+         "bound_ms": 1e3 * seg_bytes / bandwidth, "bound_by": "bytes",
+         "library_ms": None},
+        {"name": "dense_rank_rows", "route": "cuda",
+         "source": src + "dense_rank.cu",
+         "replaces": "src/repro/kernels/seg_boundary.py:18",
+         "replaces_note": "_seg_kernel and the stitch of "
+                          "repro.kernels.ops.dense_rank_sorted, in one launch",
+         "launches": launches["dense_rank_rows"], "max_abs_err": rank_err,
          "function": f"dense_rank_sorted of int32[{m}, {v}] level-0 sample "
-                     f"rows (1 launch + stitch)",
+                     f"rows (one launch)",
          "ms": rank_ms, "plain_ms": plain_rank_ms,
          "bound_ms": 1e3 * rank_bytes / bandwidth, "bound_by": "bytes",
          "library_ms": lib_rank_ms,
          "library_call": "torch.unique_consecutive(rows, dim=0, "
                          "return_inverse=True)",
-         "kernel_only_ms": seg_ms,
-         "kernel_only_bound_ms": 1e3 * seg_bytes / bandwidth},
+         "seg_boundary_stitch_ms": stitch_ms},
         {"name": "radix_hist", "route": "cuda",
          "source": src + "radix_hist.cu",
          "replaces": "src/repro/kernels/radix_hist.py:20",
@@ -1271,6 +1411,80 @@ def kernel_times(dev, levels, launches, bandwidth: float):
          "bound_ms": 1e3 * argsort_bytes / bandwidth, "bound_by": "bytes",
          "library_ms": lib_sort_ms, "library_call": lib_note},
     ]
+
+
+def default_build_ranks(dev, text) -> list:
+    """(level, site, words, pos) of every `dense_rank_gathered` call in one
+    "radix" build of `text` (the default on the card): each level's
+    window-order run starts ("window", pos the whole order) and Step-1
+    sample ranks ("samples")."""
+    from repro_torch.api import SAOptions, build_suffix_array
+    from repro_torch.core import dcv_torch
+    seen = []
+    gathered = dcv_torch.dense_rank_gathered
+
+    def record(words, pos):
+        site = "window" if pos.numel() == words[0].numel() else "samples"
+        level = sum(c[1] == "window" for c in seen) - (site == "samples")
+        seen.append((level, site, words, pos))
+        return gathered(words, pos)
+
+    with mock.patch.object(dcv_torch, "dense_rank_gathered", record):
+        build_suffix_array(text, SAOptions(sort_impl="radix"), device=dev)
+    return seen
+
+
+def dense_rank_gather_times(dev, calls, launches, bandwidth: float) -> dict:
+    """The gathered dense rank at both call sites of every level of a
+    "radix" build, against the stock sequence it replaced (one
+    `{"dense_rank_level": ...}` line a level), and level 0's kernel entry."""
+    from repro_torch.kernels import ops, ref
+    levels: dict[int, dict] = {}
+    for level, site, words, pos in calls:
+        got = ops.dense_rank_gathered(words, pos)
+        want = stock_rank(words, pos)
+        err = max(require_equal(f"dense_rank_gather level {level} {site}",
+                                g, w)
+                  for g, w in zip((got[0].long(), got[1]), want))
+        levels.setdefault(level, {})[site] = {
+            "rows": len(pos), "words": len(words),
+            "kernel_ms": time_ms(lambda: ops.dense_rank_gathered(words, pos),
+                                 dev, reps=10),
+            "stock_ms": time_ms(lambda: stock_rank(words, pos), dev, reps=10),
+            "bound_ms": 1e3 * gather_bytes(words, pos) / bandwidth,
+            "max_abs_err": err}
+    for level, sites in sorted(levels.items()):
+        log(json.dumps({"dense_rank_level": {"level": level, **sites}}))
+    (_, _, words, order), (_, _, _, sp) = calls[:2]
+    window, samples = levels[0]["window"], levels[0]["samples"]
+    plain_ms = time_ms(lambda: ref.dense_rank_gathered_ref(words, order),
+                       dev, reps=3)
+    for g, w in zip(ops.dense_rank_gathered(words, order),
+                    ref.dense_rank_gathered_ref(words, order)):
+        require_equal("dense_rank_gather level 0 (plain)", g, w)
+    return {
+        "name": "dense_rank_gather", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/dense_rank.cu",
+        "replaces": "src/repro/kernels/seg_boundary.py:18",
+        "replaces_note": "the same function as _seg_kernel + stitch, on rows "
+                         "gathered through an order; in the reference's "
+                         "radix build it is numpy (src/repro/core/"
+                         "dcv_jax.py:256 _rows_neq)",
+        "launches": launches["dense_rank_gather"],
+        "max_abs_err": max(window["max_abs_err"], samples["max_abs_err"]),
+        "function": f"run starts and dense ranks of the level-0 window order "
+                    f"(int64[{window['rows']}] positions into "
+                    f"{window['words']} packed word(s))",
+        "ms": window["kernel_ms"], "plain_ms": plain_ms,
+        "bound_ms": window["bound_ms"], "bound_by": "bytes",
+        "library_ms": window["stock_ms"],
+        "library_call": "the stock sequence it replaced: rows_neq (two "
+                        "gathers and a compare a word) and torch.cumsum",
+        "samples_function": f"level-0 Step-1 sample ranks "
+                            f"(int64[{len(sp)}] positions)",
+        "samples_ms": samples["kernel_ms"],
+        "samples_bound_ms": samples["bound_ms"],
+        "samples_library_ms": samples["stock_ms"]}
 
 
 # --------------------------------------------------------------- phase 7
@@ -2962,8 +3176,10 @@ def main() -> int:
     bandwidth = dram_bytes_per_s(torch.cuda.get_device_name(0))
     levels = window_levels(dev, idx.text)
     table = kernel_times(dev, levels, launches, bandwidth)
+    table.append(dense_rank_gather_times(
+        dev, default_build_ranks(dev, idx.text), launches, bandwidth))
     for entry in table:
-        if entry["name"] in ("radix_hist", "radix_scatter"):
+        if entry["name"] in PATH_KERNELS["sparse"]:
             entry["launches_sparse"] = sparse["launches"][entry["name"]]
     per_level = bitonic_levels(dev, levels, bandwidth)
     del levels

@@ -23,7 +23,9 @@ after each refinement round, and the widest tie group.
 with `dense_rank_sorted`; "torch" packs the window columns into int64
 words and sorts them with stable `torch.sort` passes; "radix" sorts the
 same words with `radix_argsort`, the LSD radix sort on the histogram and
-scatter kernels. "torch" and "radix" rank the samples from the words.
+scatter kernels. "torch" and "radix" rank the samples from the words:
+"torch" with stock gathers and compares (`rows_neq`), "radix" with
+`dense_rank_gathered`, which also marks the window order's run starts.
 "bitonic" is the JAX package's legacy fused path: a key sort ranks the
 sample windows, and ONE comparator-bitonic network (`core.bitonic`, the
 Lemma-1 comparator at every stage) sorts all suffixes of a level.
@@ -36,7 +38,9 @@ import numpy as np
 import torch
 
 from ..kernels.ops import bitonic_sort as kernel_bitonic_sort
-from ..kernels.ops import dense_rank_sorted, radix_argsort
+from ..kernels.ops import (dense_rank_gathered, dense_rank_sorted,
+                           radix_argsort)
+from ..kernels.ref import rows_neq
 from .bitonic import (bitonic_sort, lex_lt_int, next_pow2,
                       sort_rows_with_index)
 from .compat import resolve_device, resolve_sort_impl
@@ -180,15 +184,6 @@ def _order_from_words(words: list[torch.Tensor]) -> torch.Tensor:
     return order
 
 
-def _rows_neq(rep: list[torch.Tensor], pa: torch.Tensor,
-              pb: torch.Tensor) -> torch.Tensor:
-    """Element-wise "window at pa differs from window at pb" via `rep`."""
-    neq = rep[0][pa] != rep[0][pb]
-    for w in rep[1:]:
-        neq |= w[pa] != w[pb]
-    return neq
-
-
 def _window_order(xp: torch.Tensor, n_v: int, v: int, lo: int, hi: int,
                   impl: str):
     """Sort all n_v window rows with the chosen impl.
@@ -199,6 +194,10 @@ def _window_order(xp: torch.Tensor, n_v: int, v: int, lo: int, hi: int,
     matrix in sorted order (int32[n_v, v]) for "kernel" and the packed
     words (position-indexed) for "torch" and "radix".
     """
+    if impl == "radix":
+        words = _window_words(xp, n_v, v, lo, hi)
+        order = radix_argsort(words, _word_bits(v, lo, hi))
+        return order, dense_rank_gathered(words, order)[1], words
     is_start = torch.ones(n_v, dtype=torch.bool, device=xp.device)
     if impl == "kernel":
         out = kernel_bitonic_sort(_window_rows(xp, n_v, v))[:n_v]
@@ -206,11 +205,8 @@ def _window_order(xp: torch.Tensor, n_v: int, v: int, lo: int, hi: int,
         is_start[1:] = (srt[1:] != srt[:-1]).any(dim=1)
         return out[:, v].long(), is_start, srt
     words = _window_words(xp, n_v, v, lo, hi)
-    if impl == "radix":
-        order = radix_argsort(words, _word_bits(v, lo, hi))
-    else:
-        order = _order_from_words(words)
-    is_start[1:] = _rows_neq(words, order[1:], order[:-1])
+    order = _order_from_words(words)
+    is_start[1:] = rows_neq(words, order[1:], order[:-1])
     return order, is_start, words
 
 
@@ -540,9 +536,11 @@ def suffix_array_torch(
         sp = order[s_slots]                       # sample pos, window-sorted
         if impl == "kernel":
             ranks_sorted, n_distinct = dense_rank_sorted(rep[s_slots])
+        elif impl == "radix":
+            ranks_sorted, _, n_distinct = dense_rank_gathered(rep, sp)
         else:
             sb = torch.ones(m, dtype=torch.bool, device=dev)
-            sb[1:] = _rows_neq(rep, sp[1:], sp[:-1])
+            sb[1:] = rows_neq(rep, sp[1:], sp[:-1])
             ranks_sorted = torch.cumsum(sb, 0) - 1
             n_distinct = ranks_sorted[-1] + 1
         n_distinct = int(n_distinct)

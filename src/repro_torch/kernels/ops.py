@@ -7,9 +7,14 @@
   `bitonic_sort.cu`) / a full row sort in those launches
   (`repro_torch.core.dcv_torch` sorts its window rows with it when
   ``sort_impl="kernel"``);
-* `seg_boundary` — block-local boundaries and prefix sums of sorted rows;
-* `dense_rank_sorted` — dense ranks of sorted rows: `seg_boundary` plus
-  a block stitch in PyTorch ops (the Step-1 sample ranking);
+* `seg_boundary` — block-local boundaries and prefix sums of sorted rows
+  (the TPU kernel's contract; off every build path);
+* `dense_rank_sorted` — dense ranks of sorted rows in one pass
+  (`dense_rank.cu`, its rows form; the "kernel" build's Step-1 sample
+  ranks);
+* `dense_rank_gathered` — the same of rows gathered from packed words
+  through an order (`dense_rank.cu`, its gathered form; the run starts and
+  sample ranks of the "radix" build, the sparse build's head ranks);
 * `radix_histogram_blocks` / `radix_histogram` — per-block / global digit
   histograms (`radix_hist.cu`, its digit loader);
 * `radix_pass_counts` — one radix pass's digit counts taken straight from
@@ -20,10 +25,9 @@
 
 Each wrapper picks its path from the tensor it is given: a CUDA tensor
 runs the hand-written kernel (`bitonic_stage.cu`, `bitonic_sort.cu`,
-`seg_boundary.cu`, `radix_hist.cu`, `radix_scatter.cu`), a CPU tensor runs
-the plain version
-in `ref`. Any other device raises. `LAUNCHES` counts kernel launches by
-kernel name.
+`seg_boundary.cu`, `dense_rank.cu`, `radix_hist.cu`, `radix_scatter.cu`), a
+CPU tensor runs the plain version in `ref`. Any other device raises.
+`LAUNCHES` counts kernel launches by kernel name.
 """
 from __future__ import annotations
 
@@ -33,14 +37,15 @@ from . import ref
 from ._build import LAUNCHES
 from .bitonic_sort import bitonic_launch_cuda, schedule
 from .bitonic_stage import bitonic_stage_cuda
+from .dense_rank import dense_rank_gather_cuda, dense_rank_rows_cuda
 from .radix_hist import radix_histogram_cuda, radix_pass_counts_cuda
 from .radix_scatter import radix_scatter_cuda
 from .seg_boundary import seg_boundary_cuda
 
 __all__ = ["LAUNCHES", "bitonic_launch", "bitonic_sort", "bitonic_stage",
-           "dense_rank_sorted", "radix_argsort", "radix_histogram",
-           "radix_histogram_blocks", "radix_pass_counts", "radix_scatter",
-           "seg_boundary"]
+           "dense_rank_gathered", "dense_rank_sorted", "radix_argsort",
+           "radix_histogram", "radix_histogram_blocks", "radix_pass_counts",
+           "radix_scatter", "seg_boundary"]
 
 
 def _on_cuda(t: torch.Tensor, op: str) -> bool:
@@ -112,32 +117,28 @@ def dense_rank_sorted(rows: torch.Tensor, num_keys: int | None = None,
                       block: int = 512):
     """Dense ranks of lexicographically sorted rows [N, W], N >= 1.
 
-    `seg_boundary` computes block-local boundaries and prefix sums; this
-    wrapper stitches the blocks. Rows must already be sorted by their first
-    `num_keys` columns (default: all). Equal rows share a rank; ranks are
-    dense (0 .. num_distinct - 1).
+    Rows must already be sorted by their first `num_keys` columns (default:
+    all). Equal rows share a rank; ranks are dense (0 .. num_distinct - 1).
+    On a CUDA tensor one launch of `dense_rank.cu` computes them, carrying
+    the count across tiles itself; `block`, the reference's Pallas block,
+    stays in the signature and no longer changes anything.
 
     Returns (ranks int32[N], num_distinct int32 0-d tensor)."""
-    n, w = rows.shape
-    num_keys = num_keys or w
-    pad = (-n) % block
-    rows_p = (torch.cat([rows, rows[-1:].expand(pad, w)], dim=0) if pad
-              else rows.contiguous())
-    flags, csum, totals = seg_boundary(rows_p, num_keys, block)
-    nb = rows_p.shape[0] // block
-    base = torch.cumsum(totals, 0, dtype=torch.int32) - totals
-    if nb > 1:
-        # block b's flag[0] is forced to 1; where the rows on either side of
-        # the block edge are equal, every rank inside block b over-counts by
-        # one from that false boundary.
-        edge_prev = rows_p[block - 1:-1:block, :num_keys]
-        edge_next = rows_p[block::block, :num_keys]
-        same = (edge_prev == edge_next).all(dim=1)
-        corr = torch.zeros(nb, dtype=torch.int32, device=rows.device)
-        corr[1:] = torch.cumsum(same, 0, dtype=torch.int32)
-        base = base - corr
-    ranks = (base[:, None] + csum.view(nb, block) - 1).reshape(-1)[:n]
-    return ranks, ranks[-1] + 1
+    num_keys = num_keys or rows.shape[1]
+    if _on_cuda(rows, "dense_rank_sorted"):
+        return dense_rank_rows_cuda(rows.contiguous(), num_keys)
+    return ref.dense_rank_rows_ref(rows, num_keys)
+
+
+def dense_rank_gathered(words, pos: torch.Tensor):
+    """Dense ranks of the rows (words[0][pos[i]], ..., words[K-1][pos[i]])
+    of int64 `words`, which `pos` (int64[N]) sorts: (ranks int32[N],
+    is_start bool[N], n_distinct int32 0-d); see
+    `ref.dense_rank_gathered_ref`. On a CUDA tensor one launch of
+    `dense_rank.cu` gathers each word once a row."""
+    if _on_cuda(pos, "dense_rank_gathered"):
+        return dense_rank_gather_cuda(words, pos)
+    return ref.dense_rank_gathered_ref(words, pos)
 
 
 def radix_histogram_blocks(digits: torch.Tensor, n_bins: int,

@@ -86,6 +86,41 @@ def seg_boundary_ref(rows: torch.Tensor, num_keys: int | None = None,
     return flags, csum, totals
 
 
+def dense_rank_rows_ref(rows: torch.Tensor, num_keys: int | None = None):
+    """Dense ranks of rows [N, W] sorted by their first num_keys columns:
+    (ranks int32[N], n_distinct int32 0-d). Row i starts a run iff it
+    differs from row i-1 there (row 0 always does); ranks[i] is the number
+    of run starts up to i, less one."""
+    num_keys = num_keys or rows.shape[1]
+    keys = rows[:, :num_keys]
+    start = torch.ones(rows.shape[0], dtype=torch.bool, device=rows.device)
+    start[1:] = (keys[1:] != keys[:-1]).any(dim=1)
+    return (torch.cumsum(start, 0, dtype=torch.int32) - 1,
+            start.sum(dtype=torch.int32))
+
+
+def rows_neq(words: Sequence[torch.Tensor], pa: torch.Tensor,
+             pb: torch.Tensor) -> torch.Tensor:
+    """Element-wise "row at pa differs from row at pb", a row being the
+    tuple of `words` at one position: two gathers and a compare a word."""
+    neq = words[0][pa] != words[0][pb]
+    for w in words[1:]:
+        neq |= w[pa] != w[pb]
+    return neq
+
+
+def dense_rank_gathered_ref(words: Sequence[torch.Tensor],
+                            pos: torch.Tensor):
+    """Dense ranks of the rows (words[0][pos[i]], ..., words[K-1][pos[i]])
+    in the order of `pos`, which must sort them: (ranks int32[N], is_start
+    bool[N], n_distinct int32 0-d), is_start[i] marking row i != row i-1
+    (is_start[0] True) and ranks = cumsum(is_start) - 1."""
+    is_start = torch.ones(pos.shape[0], dtype=torch.bool, device=pos.device)
+    is_start[1:] = rows_neq(words, pos[1:], pos[:-1])
+    return (torch.cumsum(is_start, 0, dtype=torch.int32) - 1, is_start,
+            is_start.sum(dtype=torch.int32))
+
+
 def radix_histogram_ref(digits: torch.Tensor, n_bins: int,
                         block: int) -> torch.Tensor:
     """Per-block histograms: int32[N] digits, N a multiple of `block` ->

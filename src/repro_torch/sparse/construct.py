@@ -29,8 +29,8 @@ import numpy as np
 import torch
 
 from ..core.compat import resolve_device
-from ..core.dcv_torch import _compact, _rows_neq, _run_state
-from ..kernels.ops import radix_argsort
+from ..core.dcv_torch import _compact, _run_state
+from ..kernels.ops import dense_rank_gathered, radix_argsort
 
 I64 = torch.int64
 
@@ -95,10 +95,9 @@ def build_sparse_suffix_array(text, sample_rate: int,
 
     words, widths = _sampled_head_words(text, ns, s)
     perm = radix_argsort(words, widths)
-    is_start = torch.ones(ns, dtype=torch.bool, device=dev)
-    is_start[1:] = _rows_neq(words, perm[1:], perm[:-1])
+    head_rank, is_start, _ = dense_rank_gathered(words, perm)
     rank = torch.empty(ns, dtype=I64, device=dev)
-    rank[perm] = torch.cumsum(is_start, 0) - 1
+    rank[perm] = head_rank.long()
 
     # Stride doubling in sampled units: round h refines ties by the rank h
     # samples (h·s characters) later; ranks reflect 2h·s characters after

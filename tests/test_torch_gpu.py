@@ -13,11 +13,15 @@ import torch
 from repro_torch.api import SAOptions, SuffixArrayIndex
 from repro_torch.core.dcv_torch import _order_from_words, suffix_array_torch
 from repro_torch.kernels import bitonic_sort as bsort
-from repro_torch.kernels import ops, ref
+from repro_torch.kernels import dense_rank, ops, ref
 from repro_torch.sparse import build_sparse_suffix_array
 from torch_pass_keys import PASS_KINDS, pass_keys
 
 pytestmark = pytest.mark.gpu
+
+#: the kernels a "radix" build launches on the card: the sort's two and the
+#: gathered dense rank (the window order's run starts, the sample ranks).
+RADIX_PATH = {"radix_hist", "radix_scatter", "dense_rank_gather"}
 
 
 @pytest.fixture
@@ -120,6 +124,92 @@ def test_dense_rank_kernel_matches_plain(cuda, n):
     assert int(nd) == int(want_nd)
 
 
+# ----------------------------------------------- single-pass dense rank
+TILE = dense_rank.TILE_ROWS
+#: one row, a tile less one, a tile, a tile and one, then many tiles.
+DENSE_NS = [1, TILE - 1, TILE, TILE + 1, 2 ** 20 + 3, 2 ** 24]
+
+
+def _gen(cuda, seed):
+    return torch.Generator(device=cuda).manual_seed(seed)
+
+
+@pytest.mark.parametrize("n", DENSE_NS)
+@pytest.mark.parametrize("w", [3, 7])          # staged in shared memory, not
+@pytest.mark.parametrize("hi", [4, 1024])      # long runs, short runs
+def test_dense_rank_rows_kernel_matches_plain(cuda, n, w, hi):
+    rows = ref.bitonic_sort_ref(torch.randint(
+        0, hi, (n, w), generator=_gen(cuda, n + w), device=cuda,
+        dtype=torch.int32))
+    for num_keys in (w, w - 1):
+        before = ops.LAUNCHES["dense_rank_rows"]
+        got, nd = ops.dense_rank_sorted(rows, num_keys)
+        assert ops.LAUNCHES["dense_rank_rows"] == before + 1
+        want, want_nd = ref.dense_rank_rows_ref(rows, num_keys)
+        torch.testing.assert_close(got, want, rtol=0, atol=0)
+        assert int(nd) == int(want_nd)
+
+
+def _gathered(cuda, n, k, hi, seed):
+    """k int64 words of 2n positions and, as pos, every other entry of their
+    sorted order: a sorted subsequence, as the sample ranks get."""
+    g = _gen(cuda, seed)
+    words = [torch.randint(0, hi, (2 * n,), generator=g, device=cuda)
+             for _ in range(k)]
+    return words, _order_from_words(words)[::2].contiguous()
+
+
+def _assert_gathered(words, pos):
+    got = ops.dense_rank_gathered(words, pos)
+    want = ref.dense_rank_gathered_ref(words, pos)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("n", DENSE_NS)
+@pytest.mark.parametrize("k,hi", [(1, 2 ** 45), (1, 64), (2, 16), (17, 2)])
+def test_dense_rank_gather_kernel_matches_plain(cuda, n, k, hi):
+    words, pos = _gathered(cuda, n, k, hi, n + k)
+    before = ops.LAUNCHES["dense_rank_gather"]
+    _assert_gathered(words, pos)
+    assert ops.LAUNCHES["dense_rank_gather"] == before + 1
+    # the same rows in no order: is_start still compares neighbours
+    perm = torch.randperm(n, generator=_gen(cuda, 7), device=cuda)
+    _assert_gathered(words, pos[perm])
+
+
+@pytest.mark.parametrize("n", [TILE + 1, 2 ** 16 + 5])
+def test_dense_rank_gather_kernel_takes_words_up_to_its_cap(cuda, n):
+    # every word but the last is constant, so each row compares all K
+    k = dense_rank.MAX_WORDS
+    words = [torch.zeros(n, dtype=torch.int64, device=cuda)] * (k - 1)
+    words.append(torch.randint(0, 2, (n,), generator=_gen(cuda, 1),
+                               device=cuda))
+    _assert_gathered(words, _order_from_words(words[-1:]))
+    with pytest.raises(ValueError, match=str(k)):
+        ops.dense_rank_gathered(words + words[:1], words[0][:1])
+
+
+def test_dense_rank_kernels_carry_one_run_far_and_reset(cuda):
+    # one constant run across 300 tiles (the look-back carries it through
+    # all of them), then all rows distinct; each form twice in a row, so a
+    # second call starts from fresh scratch
+    n = 300 * TILE + 17
+    const = torch.full((n, 3), 5, dtype=torch.int32, device=cuda)
+    distinct = torch.arange(n, dtype=torch.int32, device=cuda)[:, None] \
+        .repeat(1, 3)
+    for rows in (const, distinct):
+        want = ref.dense_rank_rows_ref(rows)
+        for _ in range(2):
+            got = ops.dense_rank_sorted(rows)
+            for g, w in zip(got, want):
+                torch.testing.assert_close(g, w, rtol=0, atol=0)
+        words = [rows[:, 0].long()]
+        pos = torch.arange(n, device=cuda)
+        for _ in range(2):
+            _assert_gathered(words, pos)
+
+
 def test_small_build_goes_through_the_kernels(cuda):
     rng = np.random.default_rng(3)
     docs = [rng.integers(0, 4, 3000) for _ in range(4)]
@@ -127,18 +217,19 @@ def test_small_build_goes_through_the_kernels(cuda):
     for key in ops.LAUNCHES:
         ops.LAUNCHES[key] = 0
     idx = SuffixArrayIndex.from_docs(docs, device=cuda)
-    # "auto" on the card is the radix path: its two kernels launched, the
-    # bitonic ones and seg_boundary did not
-    assert {k for k, v in ops.LAUNCHES.items() if v} == {
-        "radix_hist", "radix_scatter"}
+    # "auto" on the card is the radix path: the sort's two kernels and the
+    # gathered dense rank launched, the bitonic ones and the rows form did
+    # not
+    assert {k for k, v in ops.LAUNCHES.items() if v} == RADIX_PATH
     for key in ops.LAUNCHES:
         ops.LAUNCHES[key] = 0
     kernel = SuffixArrayIndex.from_docs(docs, SAOptions(sort_impl="kernel"),
                                         device=cuda)
     # the explicit "kernel" path: the shared-memory sort's two kernels and
-    # seg_boundary launched, the one-stage kernel and the radix ones did not
+    # the rows form of the dense rank launched; the one-stage kernel,
+    # seg_boundary and the radix ones did not
     assert {k for k, v in ops.LAUNCHES.items() if v} == {
-        "bitonic_tile", "bitonic_cross", "seg_boundary"}
+        "bitonic_tile", "bitonic_cross", "dense_rank_rows"}
     cpu = SuffixArrayIndex.from_docs(docs, device="cpu")
     torch.testing.assert_close(idx.sa.cpu(), cpu.sa, rtol=0, atol=0)
     torch.testing.assert_close(kernel.sa.cpu(), cpu.sa, rtol=0, atol=0)
@@ -273,8 +364,7 @@ def test_small_radix_and_sparse_builds_match_cpu(cuda):
         ops.LAUNCHES[key] = 0
     radix = SuffixArrayIndex.from_docs(docs, SAOptions(sort_impl="radix"),
                                        device=cuda)
-    assert {k for k, v in ops.LAUNCHES.items() if v} == {"radix_hist",
-                                                          "radix_scatter"}
+    assert {k for k, v in ops.LAUNCHES.items() if v} == RADIX_PATH
     cpu = SuffixArrayIndex.from_docs(docs, SAOptions(sort_impl="radix"),
                                      device="cpu")
     torch.testing.assert_close(radix.sa.cpu(), cpu.sa, rtol=0, atol=0)
@@ -282,7 +372,7 @@ def test_small_radix_and_sparse_builds_match_cpu(cuda):
         ops.LAUNCHES[key] = 0
     sparse = SuffixArrayIndex.from_docs(docs, SAOptions(sample_rate=8),
                                         device=cuda)
-    assert ops.LAUNCHES["radix_hist"] > 0 and ops.LAUNCHES["radix_scatter"] > 0
+    assert {k for k, v in ops.LAUNCHES.items() if v} == RADIX_PATH
     sparse_cpu = build_sparse_suffix_array(cpu.text, 8, device="cpu")
     torch.testing.assert_close(sparse.sa.cpu(), sparse_cpu, rtol=0, atol=0)
     dense = cpu.sa.long()
@@ -314,12 +404,12 @@ def test_bsp_build_on_the_card_matches_the_single_device_sa(cuda, impl):
     assert ct.rounds >= 2 and mesh.rendezvous == ct.supersteps - sum(
         e["label"] == "base/gather" for e in ct.log)
     # "torch" sorts its keys with torch.sort; its base case is the default
-    # single-device build, on the radix kernels
+    # single-device build, on the radix kernels and the gathered dense rank
     launched = {k for k, v in ops.LAUNCHES.items() if v}
     if impl == "torch":
-        assert launched <= {"radix_hist", "radix_scatter"}, ops.LAUNCHES
+        assert launched <= RADIX_PATH, ops.LAUNCHES
     else:
-        assert launched == {"radix_hist", "radix_scatter"}, ops.LAUNCHES
+        assert launched == RADIX_PATH, ops.LAUNCHES
 
 
 # ------------------------------------------------------- serving on the card
@@ -428,8 +518,7 @@ def test_data_plane_on_the_card_equals_the_cpu_port(cuda):
         st = card.ingest_shard(shard)
         assert st.builds == 1
         # each segment build ran the radix path, "auto" on the card
-        assert {k for k, v in ops.LAUNCHES.items() if v} == {
-            "radix_hist", "radix_scatter"}
+        assert {k for k, v in ops.LAUNCHES.items() if v} == RADIX_PATH
     assert card.index.device.type == "cuda"
     assert card.gate.index.sa.device.type == "cuda"
     cpu = TrainingDataPlane(cfg, eval_docs=eval_docs, shards=shards,
