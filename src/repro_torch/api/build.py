@@ -23,6 +23,7 @@ import torch
 
 from ..core.compat import resolve_device, resolve_sort_impl
 from ..core.dcv_torch import pad_bucket
+from ..trace import span
 from .options import SAOptions
 from .registry import get_backend
 
@@ -92,6 +93,11 @@ def build_suffix_array(x, options: SAOptions | None = None, *,
     applied on top of `options`, e.g. ``build_suffix_array(x,
     backend="seq", device="cpu")``.
     """
+    with span("repro_torch.build"):
+        return _build_suffix_array(x, options, device, overrides)
+
+
+def _build_suffix_array(x, options, device, overrides) -> torch.Tensor:
     opts = options if options is not None else SAOptions()
     if overrides:
         opts = opts.replace(**overrides)

@@ -40,6 +40,7 @@ import torch
 
 from ..core.compat import resolve_device
 from ..text.lcp import lcp_kasai, repeated_substring_spans
+from ..trace import span
 from .build import build_suffix_array
 from .options import SAOptions
 from .query import QueryBatch, batch_ranges, stage_batch
@@ -102,18 +103,20 @@ def encode_docs(docs) -> tuple[np.ndarray, np.ndarray, int]:
     n_docs = len(docs)
     if n_docs == 0:
         return np.zeros(0, np.int64), np.zeros(0, np.int64), 0
-    parts, starts, off = [], [], 0
-    for i, d in enumerate(docs):
-        d = np.asarray(d, np.int64)
-        if d.ndim != 1:
-            raise ValueError(f"doc {i} must be 1-D, got shape {d.shape}")
-        if len(d) and int(d.min()) < 0:
-            raise ValueError(f"doc {i} has negative values")
-        starts.append(off)
-        parts.append(d + n_docs)
-        parts.append(np.asarray([i], np.int64))
-        off += len(d) + 1
-    return (np.concatenate(parts), np.asarray(starts, np.int64), n_docs)
+    with span("repro_torch.index.encode_docs"):
+        parts, starts, off = [], [], 0
+        for i, d in enumerate(docs):
+            d = np.asarray(d, np.int64)
+            if d.ndim != 1:
+                raise ValueError(f"doc {i} must be 1-D, got shape "
+                                 f"{d.shape}")
+            if len(d) and int(d.min()) < 0:
+                raise ValueError(f"doc {i} has negative values")
+            starts.append(off)
+            parts.append(d + n_docs)
+            parts.append(np.asarray([i], np.int64))
+            off += len(d) + 1
+        return (np.concatenate(parts), np.asarray(starts, np.int64), n_docs)
 
 
 @dataclass(frozen=True)
@@ -180,8 +183,9 @@ class SuffixArrayIndex:
             from ..sparse import SparseSuffixArrayIndex
             return SparseSuffixArrayIndex.build(text, opts, sigma=sigma,
                                                 device=device)
-        text = torch.as_tensor(np.asarray(text, np.int64),
-                               device=resolve_device(device))
+        with span("repro_torch.index.upload"):
+            text = torch.as_tensor(np.asarray(text, np.int64),
+                                   device=resolve_device(device))
         sa = build_suffix_array(text, opts, device=device)
         return cls(text, sa, shift=0, options=opts, sigma=sigma,
                    device=device)
@@ -199,7 +203,8 @@ class SuffixArrayIndex:
             return SparseSuffixArrayIndex.from_docs(docs, opts, sigma=sigma,
                                                     device=device)
         text, starts, n_docs = encode_docs(docs)
-        text = torch.as_tensor(text, device=resolve_device(device))
+        with span("repro_torch.index.upload"):
+            text = torch.as_tensor(text, device=resolve_device(device))
         sa = build_suffix_array(text, opts, device=device)
         return cls(text, sa, doc_starts=starts, shift=n_docs, options=opts,
                    sigma=sigma, device=device)

@@ -29,14 +29,6 @@ class BSPCounters:
         self.work += int(w)
         self.log.append({"label": label, "h": int(h), "w": int(w)})
 
-    def local(self, label: str, *, w: int) -> None:
-        """Local-only computation phase (no barrier, merged into next step)."""
-        if not self.enabled:
-            return
-        self.work += int(w)
-        if self.log:
-            self.log[-1]["w_post"] = self.log[-1].get("w_post", 0) + int(w)
-
     @property
     def rounds(self) -> int:
         """Completed distributed SM1/SM2 rounds (recursion levels that ran

@@ -11,6 +11,8 @@ import math
 
 import torch
 
+from ..trace import span
+
 INT32_MAX = torch.iinfo(torch.int32).max
 
 
@@ -34,17 +36,18 @@ def within_group_index(group: torch.Tensor, valid: torch.Tensor):
     A stable sort of the group ids (invalid ones last), run starts from
     the boundary flags, their running maximum (`torch.cummax`), and the
     positions scattered back. Returns int32[m]."""
-    m = group.shape[0]
-    big = torch.where(valid, group.to(torch.int32), INT32_MAX)
-    order = torch.sort(big, stable=True).indices          # valid groups first
-    g_sorted = big[order]
-    pos = torch.arange(m, dtype=torch.int64, device=group.device)
-    boundary = torch.ones(m, dtype=torch.bool, device=group.device)
-    if m > 1:
-        boundary[1:] = g_sorted[1:] != g_sorted[:-1]
-    run_start = torch.cummax(torch.where(boundary, pos, 0), dim=0).values
-    out = torch.empty_like(pos).scatter_(0, order, pos - run_start)
-    return torch.where(valid, out, 0).to(torch.int32)
+    with span("repro_torch.bsp.group_index"):
+        m = group.shape[0]
+        big = torch.where(valid, group.to(torch.int32), INT32_MAX)
+        order = torch.sort(big, stable=True).indices      # valid groups first
+        g_sorted = big[order]
+        pos = torch.arange(m, dtype=torch.int64, device=group.device)
+        boundary = torch.ones(m, dtype=torch.bool, device=group.device)
+        if m > 1:
+            boundary[1:] = g_sorted[1:] != g_sorted[:-1]
+        run_start = torch.cummax(torch.where(boundary, pos, 0), dim=0).values
+        out = torch.empty_like(pos).scatter_(0, order, pos - run_start)
+        return torch.where(valid, out, 0).to(torch.int32)
 
 
 def counts_per_bucket(dest: torch.Tensor, valid: torch.Tensor, p: int):

@@ -48,6 +48,7 @@ from ..core.dcv_torch import _cover_constants, suffix_array_torch
 from ..core.difference_cover import cover_tables
 from ..core.seq_ref import accelerated_next_v
 from ..launch.mesh import all_gather, mesh_num_devices, ppermute
+from ..trace import span
 from .counters import BSPCounters, NULL_COUNTERS
 from .exchange import exchange
 from .psort import (key_sort_of, local_sort_lex, make_local_sort_bitonic,
@@ -332,7 +333,8 @@ def suffix_array_bsp(
         if n <= max(base_threshold, 2 * p * v, 8):
             # paper: |X'| ≤ n/p → ship to one processor, solve sequentially.
             counters.superstep("base/gather", h=n, w=n * 4)
-            return suffix_array_torch(x, v=3, device=dev0).long()
+            with span("repro_torch.bsp.base"):
+                return suffix_array_torch(x, v=3, device=dev0).long()
         v = int(min(max(v, 3), n))
         n_pv, n_loc, m_loc, m_tot, tabs = round_geometry(n, p, v)
         dsize = len(tabs.D)
@@ -345,9 +347,10 @@ def suffix_array_bsp(
 
         sigma = quantize_sigma(int(x.max()) + 1)
         sm1_sigma, w1, sm2_sigma, nk2 = _sm_widths(v, sigma, impl, pack_keys)
-        xprime, distinct, over = _sm1(mesh, xg, sigma=sm1_sigma, **geom)
-        _round_cost("SM1", n_loc, m_loc, p, v, dsize, w1 + 2, counters)
-        _check_overflow(over, "SM1")
+        with span("repro_torch.bsp.sm1"):
+            xprime, distinct, over = _sm1(mesh, xg, sigma=sm1_sigma, **geom)
+            _round_cost("SM1", n_loc, m_loc, p, v, dsize, w1 + 2, counters)
+            _check_overflow(over, "SM1")
 
         # saca-lint: allow[SCHED001] host-uniform by construction: `distinct`
         # holds every rank's flag and the one controller ANDs it, so every
@@ -363,11 +366,12 @@ def suffix_array_bsp(
             sa_rank = [inv[r * m_loc:(r + 1) * m_loc].to(dev)
                        for r, dev in enumerate(mesh.devices)]
 
-        sa, over = _sm2(mesh, xg, sa_rank, impl=impl, sigma=sm2_sigma,
-                        **geom)
-        _round_cost("SM2", n_loc, m_loc, p, v, dsize, 3 + nk2 + dsize,
-                    counters)
-        _check_overflow(over, "SM2")
+        with span("repro_torch.bsp.sm2"):
+            sa, over = _sm2(mesh, xg, sa_rank, impl=impl, sigma=sm2_sigma,
+                            **geom)
+            _round_cost("SM2", n_loc, m_loc, p, v, dsize, 3 + nk2 + dsize,
+                        counters)
+            _check_overflow(over, "SM2")
         sa = torch.cat([s.to(dev0) for s in sa]).long()
         return sa[sa < n]                                     # trim pads
 

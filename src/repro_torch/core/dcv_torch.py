@@ -41,6 +41,7 @@ from ..kernels.ops import bitonic_sort as kernel_bitonic_sort
 from ..kernels.ops import (dense_rank_gathered, dense_rank_sorted,
                            radix_argsort)
 from ..kernels.ref import rows_neq
+from ..trace import span
 from .bitonic import (bitonic_sort, lex_lt_int, next_pow2,
                       sort_rows_with_index)
 from .compat import resolve_device, resolve_sort_impl
@@ -348,30 +349,32 @@ def _resolve_ties(order, is_start, rank, shifts, lam1, lam2, v: int,
     stride = v
     cap = max(_TIEBREAK_COMPACT_MAX, n_v >> 3)
     while U > cap and stride < n_v:
-        sl = _compact(unresolved, U)
-        p = order[sl]
-        nxt = p + stride
-        key = torch.where(nxt < n_v, r_pos[nxt.clamp(max=n_v - 1)], -1)
-        packed = (r_pos[p] << 32) | (key + 1)             # both < 2^31
-        pk, local = torch.sort(packed, stable=True)
-        order[sl] = p[local]
-        # run starts re-emerge via the high bits; interiors refine.
-        is_start[sl[1:]] = pk[1:] != pk[:-1]
-        run_start, sizes = _run_state(is_start)
-        r_pos[order] = run_start
-        unresolved = sizes > 1
-        U = int(unresolved.sum())
+        with span("repro_torch.dcv.refine"):
+            sl = _compact(unresolved, U)
+            p = order[sl]
+            nxt = p + stride
+            key = torch.where(nxt < n_v, r_pos[nxt.clamp(max=n_v - 1)], -1)
+            packed = (r_pos[p] << 32) | (key + 1)             # both < 2^31
+            pk, local = torch.sort(packed, stable=True)
+            order[sl] = p[local]
+            # run starts re-emerge via the high bits; interiors refine.
+            is_start[sl[1:]] = pk[1:] != pk[:-1]
+            run_start, sizes = _run_state(is_start)
+            r_pos[order] = run_start
+            unresolved = sizes > 1
+            U = int(unresolved.sum())
         stride *= 2
     if U == 0:
         return order
 
     # Lemma-1 comparator on the compacted ties only.
-    sl = _compact(unresolved, U)
-    p = order[sl]
-    klass = p % v
-    order[sl] = _lemma1_order(p, sl - run_start[sl], run_start[sl],
-                              rank[p[:, None] + shifts[klass]], klass, lam1,
-                              lam2)
+    with span("repro_torch.dcv.lemma1"):
+        sl = _compact(unresolved, U)
+        p = order[sl]
+        klass = p % v
+        order[sl] = _lemma1_order(p, sl - run_start[sl], run_start[sl],
+                                  rank[p[:, None] + shifts[klass]], klass,
+                                  lam1, lam2)
     return order
 
 
@@ -506,9 +509,14 @@ def suffix_array_torch(
         return torch.zeros(n, dtype=torch.int32, device=dev)
 
     def rec(x: torch.Tensor, v: int, hi: int) -> torch.Tensor:
+        if len(x) <= max(base_threshold, v, 4):
+            with span("repro_torch.dcv.base"):
+                return suffix_array_doubling_torch(x)
+        with span("repro_torch.dcv.level"):
+            return level(x, v, hi)
+
+    def level(x: torch.Tensor, v: int, hi: int) -> torch.Tensor:
         n = len(x)
-        if n <= max(base_threshold, v, 4):
-            return suffix_array_doubling_torch(x)
         n_b = pad_bucket(n) if bucket else n
         v = int(min(max(v, 3), n_b))
         n_v = v * -(-n_b // v)
@@ -528,38 +536,42 @@ def suffix_array_torch(
         lo = -(n_v + 2 * v - n)
 
         # --- ONE window sort feeds Step 1 AND Steps 2–4 ---
-        order, is_start, rep = _window_order(xp, n_v, v, lo, hi, impl)
+        with span("repro_torch.dcv.window_order"):
+            order, is_start, rep = _window_order(xp, n_v, v, lo, hi, impl)
 
         # Step 1: sample ranks = the window order filtered to sample
         # positions (a stable subsequence of a sorted sequence is sorted).
-        s_slots = _compact(in_D[order % v], m)
-        sp = order[s_slots]                       # sample pos, window-sorted
-        if impl == "kernel":
-            ranks_sorted, n_distinct = dense_rank_sorted(rep[s_slots])
-        elif impl == "radix":
-            ranks_sorted, _, n_distinct = dense_rank_gathered(rep, sp)
-        else:
-            sb = torch.ones(m, dtype=torch.bool, device=dev)
-            sb[1:] = rows_neq(rep, sp[1:], sp[:-1])
-            ranks_sorted = torch.cumsum(sb, 0) - 1
-            n_distinct = ranks_sorted[-1] + 1
-        n_distinct = int(n_distinct)
-        si = inv_sample[sp]
-        sa_rank = torch.empty(m, dtype=I64, device=dev)
-        if n_distinct == m:
-            sa_rank[si] = torch.arange(m, device=dev)
-        else:
-            xs = torch.empty(m, dtype=I64, device=dev)
-            xs[si] = ranks_sorted.long()
+        with span("repro_torch.dcv.sample_rank"):
+            s_slots = _compact(in_D[order % v], m)
+            sp = order[s_slots]                   # sample pos, window-sorted
+            if impl == "kernel":
+                ranks_sorted, n_distinct = dense_rank_sorted(rep[s_slots])
+            elif impl == "radix":
+                ranks_sorted, _, n_distinct = dense_rank_gathered(rep, sp)
+            else:
+                sb = torch.ones(m, dtype=torch.bool, device=dev)
+                sb[1:] = rows_neq(rep, sp[1:], sp[:-1])
+                ranks_sorted = torch.cumsum(sb, 0) - 1
+                n_distinct = ranks_sorted[-1] + 1
+            n_distinct = int(n_distinct)
+            si = inv_sample[sp]
+            sa_rank = torch.empty(m, dtype=I64, device=dev)
+            if n_distinct == m:
+                sa_rank[si] = torch.arange(m, device=dev)
+            else:
+                xs = torch.empty(m, dtype=I64, device=dev)
+                xs[si] = ranks_sorted.long()
+        if n_distinct != m:
             sa_sub = rec(xs, schedule(v, len(cover_tables(v).D), m),
                          n_distinct - 1)
             sa_rank[sa_sub] = torch.arange(m, device=dev)
 
         # Steps 2–4: refine the shared window order with Lemma-1 ranks.
-        rank = torch.full((n_v + v,), -1, dtype=I64, device=dev)
-        rank[sample_pos] = sa_rank
-        sa_full = _resolve_ties(order, is_start, rank, shifts, lam1, lam2,
-                                v, n_v)
+        with span("repro_torch.dcv.resolve_ties"):
+            rank = torch.full((n_v + v,), -1, dtype=I64, device=dev)
+            rank[sample_pos] = sa_rank
+            sa_full = _resolve_ties(order, is_start, rank, shifts, lam1,
+                                    lam2, v, n_v)
         # Pad suffixes start below every real character, so all n_v - n of
         # them come first and the real suffixes are the tail.
         return sa_full[n_v - n:]

@@ -33,6 +33,7 @@ from dataclasses import dataclass
 import torch
 
 from ..core.compat import resolve_device
+from ..trace import span
 
 KINDS = ("ppermute", "all_gather", "all_to_all")
 
@@ -113,11 +114,12 @@ class LocalMesh:
         try:
             while True:
                 requests, results = [], []
-                for g, reply in zip(gens, replies):
-                    try:
-                        requests.append(g.send(reply))
-                    except StopIteration as stop:
-                        results.append(stop.value)
+                with span("repro_torch.mesh.local"):
+                    for g, reply in zip(gens, replies):
+                        try:
+                            requests.append(g.send(reply))
+                        except StopIteration as stop:
+                            results.append(stop.value)
                 if results:
                     if requests:
                         raise ScheduleError(
@@ -125,7 +127,8 @@ class LocalMesh:
                             f"while {len(requests)} yield "
                             f"{requests[0].kind}")
                     return results
-                replies = self._perform(requests)
+                with span("repro_torch.mesh.collective"):
+                    replies = self._perform(requests)
                 self.rendezvous += 1
         finally:
             for g in gens:
