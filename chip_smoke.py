@@ -31,7 +31,8 @@ Phases (any failure exits non-zero; no phase's exception is caught):
    `SuffixArrayIndex.from_docs` on the card with ``sort_impl="auto"``
    (= "radix" on a CUDA device: the radix sort and the gathered dense
    rank) and with an explicit ``sort_impl="kernel"`` (the bitonic sort and
-   the rows form of the dense rank). Each build must have launched
+   the rows form of the dense rank); both resolve their Lemma-1 ties with
+   the radix kernels and `lemma1_merge`. Each build must have launched
    exactly its path's kernels (`PATH_KERNELS`); the SA must pass an O(n)
    check and every impl ("kernel", "radix", "torch") must give the same
    SA. Then five warm builds of the default plan, timed
@@ -56,7 +57,11 @@ Phases (any failure exits non-zero; no phase's exception is caught):
    samples beside the `seg_boundary` + stitch route it replaced, and its
    gathered form at both call sites of every level of one default build
    beside the stock gathers and cumsum it replaced (one
-   `{"dense_rank_level": ...}` line a level).
+   `{"dense_rank_level": ...}` line a level); `lemma1_merge` on the
+   level-0 tie payload of one build of the infini-gram cell's corpus
+   (`sabench/configs/infinigram-llama2.json`, 2^27 tokens), beside its
+   bound, its plain version and the whole tie resolution of that level
+   (the class sort, its gathers and the merge).
 7. Trace: one more kernel-path build, one radix build and one sparse build
    under `torch.profiler`: device time by kernel and the device's idle
    share of each build's wall time.
@@ -155,7 +160,7 @@ Phases (any failure exits non-zero; no phase's exception is caught):
    ``SAOptions(mesh=make_sa_mesh(8, device="cuda"), sort_impl="auto")``,
    8 ranks sharing the card: its SA must equal the dense SA, its
    `count_batch` of the phase-4 patterns the dense counts, its launches
-   exactly `radix_hist` + `radix_scatter`, the mesh's rendezvous the
+   exactly the "bsp" path's kernels, the mesh's rendezvous the
    supersteps less the base gathers, and every round 11 SM1 and 9 SM2
    supersteps; a cold and a warm build with each SM stage's host-clock
    seconds per level, the `BSPCounters` beside `estimate_costs`, rank 0's
@@ -345,13 +350,24 @@ BSP_P = 8
 BSP_DOCS, BSP_DOC_LEN = 256, 4095
 BSP_OTHER = (("torch", 8), ("bitonic", 8), ("radix", 3))
 
-#: kernels each path must launch, and no others.
-PATH_KERNELS = {"kernel": {"bitonic_tile", "bitonic_cross", "dense_rank_rows"},
-                "radix": {"radix_hist", "radix_scatter", "dense_rank_gather"},
+#: kernels each path must launch, and no others. The Lemma-1 tie resolution
+#: of every keyed build (its class sort on the radix kernels, then
+#: `lemma1_merge`) runs on each dense path; the sparse build has no Lemma-1
+#: step.
+PATH_KERNELS = {"kernel": {"bitonic_tile", "bitonic_cross", "dense_rank_rows",
+                           "radix_hist", "radix_scatter", "lemma1_merge"},
+                "radix": {"radix_hist", "radix_scatter", "dense_rank_gather",
+                          "lemma1_merge"},
                 "sparse": {"radix_hist", "radix_scatter", "dense_rank_gather"},
-                "bsp": {"radix_hist", "radix_scatter", "dense_rank_gather"}}
+                "bsp": {"radix_hist", "radix_scatter", "dense_rank_gather",
+                        "lemma1_merge"}}
 #: every kernel the builds of phase 8 must launch between them.
 SERVING_KERNELS = PATH_KERNELS["radix"] | PATH_KERNELS["sparse"]
+
+#: phase 6: the tie payload `lemma1_merge` is timed on, from one build of
+#: the infini-gram cell's corpus at this seed.
+LEMMA1_CONFIG = ROOT / "sabench" / "configs" / "infinigram-llama2.json"
+LEMMA1_SEED = 2147483711
 
 #: the key loader's sweep in phase 2: shifts, lengths (below one block,
 #: whole and ragged blocks), blocks.
@@ -850,7 +866,7 @@ def main_path(dev, docs):
         f"launches={kernel_launches}")
     launched(dev, "kernel", kernel_launches)
     assert torch.equal(krn.sa, idx.sa), "sort_impl=kernel SA differs"
-    for key in PATH_KERNELS["kernel"]:
+    for key in PATH_KERNELS["kernel"] - PATH_KERNELS["radix"]:
         launches[key] = kernel_launches[key]
 
     builds = {"kernel": [t_kernel], "radix": [t_radix], "torch": []}
@@ -1488,6 +1504,83 @@ def dense_rank_gather_times(dev, calls, launches, bandwidth: float) -> dict:
 
 
 # --------------------------------------------------------------- phase 7
+def cell_tie_payloads(dev, config=LEMMA1_CONFIG, seed: int = LEMMA1_SEED):
+    """One default build of a `sabench` cell's corpus, its Lemma-1 step
+    recorded: (the arguments of each `_lemma1_order` call, of each
+    `lemma1_merge` call), each list by level, level 0 first (the
+    recursion resolves the deepest level's ties first)."""
+    from repro_torch.api import SuffixArrayIndex
+    from repro_torch.core import dcv_torch
+    sys.path.insert(0, str(ROOT))
+    from sabench import corpus
+    data = corpus.make_corpus(json.loads(Path(config).read_text()), seed, dev)
+    orders, merges = [], []
+    order, merge = dcv_torch._lemma1_order, dcv_torch.lemma1_merge
+
+    def record_order(*args):
+        orders.append(args)
+        return order(*args)
+
+    def record_merge(*args):
+        merges.append(args)
+        return merge(*args)
+
+    with mock.patch.object(dcv_torch, "_lemma1_order", record_order), \
+            mock.patch.object(dcv_torch, "lemma1_merge", record_merge):
+        SuffixArrayIndex.from_docs(data.docs, device=dev)
+    sync(dev)
+    return orders[::-1], merges[::-1]
+
+
+def lemma1_merge_times(dev, launches, bandwidth: float) -> dict:
+    """`lemma1_merge` on the level-0 tie payload of the infini-gram cell's
+    corpus against its plain version and its bound, beside the whole tie
+    resolution of that level (`_lemma1_order`: the class sort, its gathers
+    and the merge); one `{"lemma1_level": ...}` line a level."""
+    from repro_torch.core import dcv_torch
+    from repro_torch.kernels import ops, ref
+    orders, merges = cell_tie_payloads(dev)
+    for level, (args, margs) in enumerate(zip(orders, merges)):
+        log(json.dumps({"lemma1_level": {
+            "level": level, "rows": int(margs[0].numel()),
+            "v": int(margs[5].shape[0]), "widest": int(margs[4].max()),
+            "order_ms": time_ms(lambda a=args: dcv_torch._lemma1_order(*a),
+                                dev, reps=5),
+            "merge_ms": time_ms(lambda a=margs: ops.lemma1_merge(*a), dev,
+                                reps=5)}}))
+    args, margs = orders[0], merges[0]
+    rows = int(margs[0].numel())
+    dsize = int(margs[2].shape[1])
+    ms = time_ms(lambda: ops.lemma1_merge(*margs), dev, reps=20)
+    plain_ms = time_ms(lambda: ref.lemma1_merge_ref(*margs), dev, reps=2)
+    err = require_equal("lemma1_merge level 0", ops.lemma1_merge(*margs),
+                        ref.lemma1_merge_ref(*margs))
+    require_equal("lemma1 order level 0", dcv_torch._lemma1_order(*args),
+                  ops.lemma1_merge(*margs))
+    order_ms = time_ms(lambda: dcv_torch._lemma1_order(*args), dev, reps=5)
+    # p, klass, lane, width read and out written (8 bytes each), and each
+    # row's rvals once
+    merge_bytes = rows * (40 + 8 * dsize)
+    del orders, merges, args, margs
+    empty_cache(dev)
+    return {"name": "lemma1_merge", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/lemma1_merge.cu",
+            "replaces": None,
+            "replaces_note": "no TPU kernel: the JAX package breaks ties "
+                             "with a comparator-bitonic network in jnp "
+                             "(src/repro/core/dcv_jax.py, "
+                             "_lambda_tiebreak_jit)",
+            "launches": launches.get("lemma1_merge", 0),
+            "max_abs_err": err,
+            "function": f"Lemma-1 merge of the level-0 ties of one build of "
+                        f"the infini-gram cell's corpus (seed "
+                        f"{LEMMA1_SEED}): {rows} rows, |D| = {dsize}",
+            "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": 1e3 * merge_bytes / bandwidth, "bound_by": "bytes",
+            "level_order_ms": order_ms, "library_ms": None,
+            "library_call": "none: no PyTorch call merges by a comparator"}
+
+
 def trace_build(dev, label: str, build, top: int = 10) -> dict:
     """Device time by kernel over one call of build() under torch.profiler,
     the device's idle share of its wall time and the host calls with the most
@@ -3178,6 +3271,7 @@ def main() -> int:
     table = kernel_times(dev, levels, launches, bandwidth)
     table.append(dense_rank_gather_times(
         dev, default_build_ranks(dev, idx.text), launches, bandwidth))
+    table.append(lemma1_merge_times(dev, launches, bandwidth))
     for entry in table:
         if entry["name"] in PATH_KERNELS["sparse"]:
             entry["launches_sparse"] = sparse["launches"][entry["name"]]

@@ -48,6 +48,8 @@ from .primitives import INT32_MAX, lex_lt_rows, searchsorted_rows
 #: accepted bsp `sort_impl` values ("auto" resolves via
 #: `resolve_bsp_sort_impl`; the torch backend's "kernel" is rejected).
 BSP_SORT_IMPLS = ("auto", "radix", "torch", "bitonic")
+#: the payload's rank columns are int32: every rank lies in [-1, 2³¹).
+RANK_BOUND = 2 ** 31
 
 
 def resolve_bsp_sort_impl(sort_impl: str, pack_keys: bool = True) -> str:
@@ -230,8 +232,8 @@ def make_local_sort_keyed(nk: int, v: int, dsize: int, lam_i1, lam_i2,
     their whole v-character window, the only pairs Lemma 1 is needed for)
     by (run, Λ-rank, slot) — slot order within a run is gidx order — and
     runs only when phase 1 left such a run, as the reference's `lax.cond`
-    does. It orders just the tied rows (`core.dcv_torch._lemma1_order`:
-    lane-parallel for narrow runs, the full network for wide ones); the
+    does. It orders just the tied rows (`core.dcv_torch._lemma1_order`: a
+    keyed class sort and one merge launch, whatever the runs' widths); the
     other rows are alone in their run and keep their slot, so the result
     is the reference's whole-shard pass. Pad rows never trigger it: their
     order is fixed by the unique gidx key."""
@@ -252,9 +254,9 @@ def make_local_sort_keyed(nk: int, v: int, dsize: int, lam_i1, lam_i2,
             return rows
         sl = _compact(tied, n_tied)
         order = torch.arange(m, device=rows.device)
-        order[sl] = _lemma1_order(sl, sl - run_start[sl], run_start[sl],
+        order[sl] = _lemma1_order(sl, sl - run_start[sl], sizes[sl],
                                   rows[sl, cr:ck].long(), rows[sl, ck].long(),
-                                  lam_i1, lam_i2)
+                                  lam_i1, lam_i2, RANK_BOUND)
         return rows[order]
 
     return local_sort

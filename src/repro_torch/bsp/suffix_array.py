@@ -187,7 +187,8 @@ def _sm2_body(me: int, xloc, sa_rank_loc, *, p, v, n_loc, m_loc,
     gidx = me * n_loc + offs
     chars = xp[offs[:, None] + torch.arange(v, device=dev)[None, :]]
     klass = gidx % v
-    rvals = rank_loc[(offs[:, None] + shifts[klass]).clamp(0, n_loc + v - 1)]
+    look = (offs[:, None] + shifts[klass]).clamp(0, n_loc + v - 1)
+    rvals = rank_loc[look]
 
     if impl == "bitonic":
         # legacy: the Lemma-1 comparator at every compare-exchange of the
@@ -200,6 +201,12 @@ def _sm2_body(me: int, xloc, sa_rank_loc, *, p, v, n_loc, m_loc,
         # key-sort it, and resolve equal-window runs by Lemma 1.
         keys = pack_key_columns(chars, -1, sigma) if sigma is not None \
             else chars
+        # The pad suffixes share one all-sentinel window, and the ranks of
+        # pad positions follow no suffix order that Lemma 1 can read: a
+        # lookup that lands on a pad reads -1, so the pads' ties fall to
+        # gidx (they are trimmed after the sort). Tied real suffixes look up
+        # real positions only.
+        rvals = torch.where(xp[look] < 0, -1, rvals)
         lt = make_payload_lt(keys.shape[1], v, dsize, lam_i1, lam_i2)
         local_sort = make_local_sort_keyed(keys.shape[1], v, dsize, lam_i1,
                                            lam_i2, key_sort)

@@ -11,12 +11,13 @@ recursion level is dominated by ONE multi-key sort:
 * suffix pairs sharing their full v-prefix form *tie groups*; large tie
   sets are first shrunk by stride-doubling refinement rounds, and the
   residue is resolved with the paper's Lemma-1 comparator
-  `rank[i + Λ[k_i][k_j]]` on a compacted payload.
+  `rank[i + Λ[k_i][k_j]]` on a compacted payload: a keyed sort of each
+  group's classes, then one merge launch.
 
 Every tensor stays on the input's device. The host reads the device only
 where Python control flow needs a number: whether the sample ranks are
-all distinct (one read per level), the size of the unresolved tie set
-after each refinement round, and the widest tie group.
+all distinct (one read per level) and the size of the unresolved tie set
+after each refinement round.
 
 `sort_impl` picks the window sort (see `repro_torch.core.compat`):
 "kernel" sorts window rows with the bitonic kernel and ranks the samples
@@ -39,7 +40,7 @@ import torch
 
 from ..kernels.ops import bitonic_sort as kernel_bitonic_sort
 from ..kernels.ops import (dense_rank_gathered, dense_rank_sorted,
-                           radix_argsort)
+                           lemma1_merge, radix_argsort)
 from ..kernels.ref import rows_neq
 from ..trace import span
 from .bitonic import (bitonic_sort, lex_lt_int, next_pow2,
@@ -242,68 +243,6 @@ def suffix_array_doubling_torch(x: torch.Tensor) -> torch.Tensor:
 # --------------------------------------------------------------------------
 # Lemma-1 tie resolution
 # --------------------------------------------------------------------------
-def _lambda_tiebreak(seg, rvals, klass, pos, lam1, lam2) -> torch.Tensor:
-    """Sort the compacted tie payload by (tie group, Lemma-1 rank, index).
-
-    All rows of one `seg` group share their full v-character prefix, so the
-    Lemma-1 comparison degenerates to a rank lookup, `rank[i + Λ[k_i][k_j]]`
-    via the per-class local index tables. Pad rows carry seg = INT32_MAX
-    and sort to the back. Length must be a power of two."""
-    payload = {"seg": seg, "ranks": rvals, "klass": klass, "idx": pos}
-
-    def lt_fn(a, b):
-        seg_eq = a["seg"] == b["seg"]
-        ka, kb = a["klass"], b["klass"]
-        ra = a["ranks"].gather(1, lam1[ka, kb][:, None])[:, 0]
-        rb = b["ranks"].gather(1, lam2[ka, kb][:, None])[:, 0]
-        return torch.where(seg_eq & (ra != rb), ra < rb,
-                           torch.where(seg_eq, a["idx"] < b["idx"],
-                                       a["seg"] < b["seg"]))
-
-    return bitonic_sort(payload, lt_fn)["idx"]
-
-
-#: tie groups at most this wide run lane-parallel (`_lambda_tiebreak_lanes`);
-#: wider ones run the full-length network (`_lambda_tiebreak`).
-_LANE_MAX = 16
-
-
-def _lambda_tiebreak_lanes(p, lane, n_rows, g2, rvals, klass, lam1,
-                           lam2) -> torch.Tensor:
-    """Lane-parallel bitonic over [n_rows, g2] tie groups: one
-    compare-exchange stage is one Lemma-1 comparator evaluation across every
-    group at once. `lane` is each row's offset inside its group; pads (-1)
-    act as +inf. Returns p reordered, groups in slot order."""
-    device = p.device
-    row_of = torch.cumsum(lane == 0, 0) - 1
-    mat = torch.full((n_rows, g2), -1, dtype=I64, device=device)
-    mat[row_of, lane] = torch.arange(len(p), device=device)
-
-    def lt(a, b):
-        ac, bc = a.clamp(min=0), b.clamp(min=0)
-        ka, kb = klass[ac], klass[bc]
-        ra = rvals[ac, lam1[ka, kb]]
-        rb = rvals[bc, lam2[ka, kb]]
-        res = torch.where(ra != rb, ra < rb, p[ac] < p[bc])
-        return torch.where(a < 0, False, torch.where(b < 0, True, res))
-
-    lanes = torch.arange(g2, device=device)
-    k = 2
-    while k <= g2:
-        j = k // 2
-        while j >= 1:
-            partner = lanes ^ j
-            other = mat[:, partner]
-            up = (lanes & k) == 0
-            lower = lanes < partner
-            keep = (lt(mat, other) == lower[None, :]) == up[None, :]
-            mat = torch.where(keep, mat, other)
-            j //= 2
-        k *= 2
-    flat = mat.reshape(-1)
-    return p[flat[_compact(flat >= 0, len(p))]]
-
-
 #: tie sets larger than max(this, n_v/8) are first shrunk by stride-doubling
 #: refinement rounds before any comparator runs.
 _TIEBREAK_COMPACT_MAX = 1024
@@ -332,9 +271,9 @@ def _resolve_ties(order, is_start, rank, shifts, lam1, lam2, v: int,
     marks tie-group boundaries along it. While the tie set is large,
     stride-doubling refinement rounds shrink it using the group ranks
     themselves as keys (Manber–Myers, seeded at resolution v); the residue
-    is resolved by the Lemma-1 comparator on a compacted payload —
-    lane-parallel for narrow groups, the full-length network for wide ones.
-    `order` and `is_start` are updated in place; returns `order`.
+    is resolved by the Lemma-1 comparator on a compacted payload
+    (`_lemma1_order`). `order` and `is_start` are updated in place; returns
+    `order`.
     """
     run_start, sizes = _run_state(is_start)
     r_pos = torch.empty(n_v, dtype=I64, device=order.device)
@@ -372,38 +311,37 @@ def _resolve_ties(order, is_start, rank, shifts, lam1, lam2, v: int,
         sl = _compact(unresolved, U)
         p = order[sl]
         klass = p % v
-        order[sl] = _lemma1_order(p, sl - run_start[sl], run_start[sl],
+        order[sl] = _lemma1_order(p, sl - run_start[sl], sizes[sl],
                                   rank[p[:, None] + shifts[klass]], klass,
-                                  lam1, lam2)
+                                  lam1, lam2, len(rank))
     return order
 
 
-def _lemma1_order(p, lane, seg, rvals, klass, lam1, lam2) -> torch.Tensor:
+def _lemma1_order(p, lane, width, rvals, klass, lam1, lam2,
+                  rank_bound: int) -> torch.Tensor:
     """Order the members of each tie group by the Lemma-1 comparator.
 
-    `p` [U] lists the tied rows in slot order, each group contiguous; `lane`
-    is a row's offset inside its group, `seg` a key equal within a group
-    and increasing across groups, `rvals` [U, |D|] and `klass` [U] the
-    rows' sample ranks and classes. Ties of the comparator fall to `p`.
-    Narrow groups run lane-parallel (`_lambda_tiebreak_lanes`), wide ones
-    the full-length network (`_lambda_tiebreak`). Returns p reordered."""
-    widest, n_rows = torch.stack([lane.max(), (lane == 0).sum()]).tolist()
-    g2 = next_pow2(widest + 1)
-    if g2 <= _LANE_MAX:
-        return _lambda_tiebreak_lanes(p, lane, n_rows, g2, rvals, klass,
-                                      lam1, lam2)
-    U = len(p)
-    n2 = next_pow2(U)
-    device = p.device
-    seg_p = torch.full((n2,), INT32_MAX, dtype=I64, device=device)
-    rv = torch.zeros((n2, rvals.shape[1]), dtype=I64, device=device)
-    kl = torch.zeros(n2, dtype=I64, device=device)
-    pos = torch.full((n2,), INT32_MAX, dtype=I64, device=device)
-    seg_p[:U] = seg
-    rv[:U] = rvals
-    kl[:U] = klass
-    pos[:U] = p
-    return _lambda_tiebreak(seg_p, rv, kl, pos, lam1, lam2)[:U]
+    `p` [U] lists the tied rows in slot order, each group contiguous and
+    ascending in `p`; `lane` is a row's offset inside its group, `width`
+    the group's size, `rvals` [U, |D|] and `klass` [U] the rows' sample
+    ranks (each in [-1, rank_bound)) and classes. Ties of the comparator
+    fall to `p`.
+
+    Rows of one class compare by one column, their key
+    `rvals[i, lam1[k, k]]`. So one stable radix sort by (group, class,
+    key) orders every class segment, and one `lemma1_merge` launch places
+    each row among its group's other classes by binary search. One route
+    for every group width; nothing is read back to the host. Returns p
+    reordered."""
+    n = len(p)
+    key = rvals.gather(1, lam1[klass, klass][:, None])[:, 0] + 1
+    key_bits = int(rank_bound).bit_length()
+    start = torch.arange(n, device=p.device) - lane
+    perm = radix_argsort([start, (klass << key_bits) | key],
+                         [max(1, (n - 1).bit_length()),
+                          (lam1.shape[0] - 1).bit_length() + key_bits])
+    return lemma1_merge(p[perm], klass[perm], rvals[perm], lane, width, lam1,
+                        lam2)
 
 
 # --------------------------------------------------------------------------

@@ -27,14 +27,15 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 SOURCES = ("bitonic_stage.cu", "bitonic_sort.cu", "seg_boundary.cu",
-           "radix_hist.cu", "radix_scatter.cu", "dense_rank.cu")
+           "radix_hist.cu", "radix_scatter.cu", "dense_rank.cu",
+           "lemma1_merge.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
 
 #: kernel name -> launches so far (plain ints; zero them to start a count).
 LAUNCHES = {"bitonic_stage": 0, "bitonic_tile": 0, "bitonic_cross": 0,
             "seg_boundary": 0, "radix_hist": 0, "radix_scatter": 0,
-            "dense_rank_rows": 0, "dense_rank_gather": 0}
+            "dense_rank_rows": 0, "dense_rank_gather": 0, "lemma1_merge": 0}
 
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 #: C entry point -> argument types (every entry point returns an int status).
@@ -59,6 +60,9 @@ _SIGNATURES = {
     # words (host array of pointers), k, pos, n, ranks, is_start, scratch,
     # device, stream
     "repro_dense_rank_gather": (_P, _I, _P, _LL, _P, _P, _P, _I, _P),
+    # p, klass, rvals, lane, width, lam1, lam2, n, v, d, out, device, stream
+    "repro_lemma1_merge": (_P, _P, _P, _P, _P, _P, _P, _LL, _I, _I, _P, _I,
+                           _P),
 }
 
 _lib = None

@@ -21,12 +21,17 @@
   the int64 keys, bin-major (`radix_hist.cu`, its key loader);
 * `radix_scatter` — one stable 8-bit scatter pass (`radix_scatter.cu`);
 * `radix_argsort` — the stable LSD radix argsort of packed int64 words on
-  those two (``sort_impl="radix"`` window sorts, the sparse build).
+  those two (``sort_impl="radix"`` window sorts, the sparse build, the
+  Lemma-1 class sort);
+* `lemma1_merge` — the tied rows of a level, class-sorted, placed in
+  Lemma-1 comparator order in one pass (`lemma1_merge.cu`; every keyed
+  build's tie resolution, `core.dcv_torch._lemma1_order`).
 
 Each wrapper picks its path from the tensor it is given: a CUDA tensor
 runs the hand-written kernel (`bitonic_stage.cu`, `bitonic_sort.cu`,
-`seg_boundary.cu`, `dense_rank.cu`, `radix_hist.cu`, `radix_scatter.cu`), a
-CPU tensor runs the plain version in `ref`. Any other device raises.
+`seg_boundary.cu`, `dense_rank.cu`, `radix_hist.cu`, `radix_scatter.cu`,
+`lemma1_merge.cu`), a CPU tensor runs the plain version in `ref`. Any other
+device raises.
 `LAUNCHES` counts kernel launches by kernel name.
 """
 from __future__ import annotations
@@ -38,14 +43,15 @@ from ._build import LAUNCHES
 from .bitonic_sort import bitonic_launch_cuda, schedule
 from .bitonic_stage import bitonic_stage_cuda
 from .dense_rank import dense_rank_gather_cuda, dense_rank_rows_cuda
+from .lemma1_merge import lemma1_merge_cuda
 from .radix_hist import radix_histogram_cuda, radix_pass_counts_cuda
 from .radix_scatter import radix_scatter_cuda
 from .seg_boundary import seg_boundary_cuda
 
 __all__ = ["LAUNCHES", "bitonic_launch", "bitonic_sort", "bitonic_stage",
-           "dense_rank_gathered", "dense_rank_sorted", "radix_argsort",
-           "radix_histogram", "radix_histogram_blocks", "radix_pass_counts",
-           "radix_scatter", "seg_boundary"]
+           "dense_rank_gathered", "dense_rank_sorted", "lemma1_merge",
+           "radix_argsort", "radix_histogram", "radix_histogram_blocks",
+           "radix_pass_counts", "radix_scatter", "seg_boundary"]
 
 
 def _on_cuda(t: torch.Tensor, op: str) -> bool:
@@ -204,3 +210,15 @@ def radix_argsort(words, key_bits,
     _on_cuda(words[0], "radix_argsort")
     return ref.lsd_argsort(words, key_bits, radix_pass_counts,
                            radix_scatter, block)
+
+
+def lemma1_merge(p: torch.Tensor, klass: torch.Tensor, rvals: torch.Tensor,
+                 lane: torch.Tensor, width: torch.Tensor, lam1: torch.Tensor,
+                 lam2: torch.Tensor) -> torch.Tensor:
+    """The tied rows of a level, sorted by (group, class, key), placed in
+    Lemma-1 comparator order: int64[U], the positions `p` in their slots;
+    see `ref.lemma1_merge_ref`. On a CUDA tensor one launch of
+    `lemma1_merge.cu`."""
+    if _on_cuda(p, "lemma1_merge"):
+        return lemma1_merge_cuda(p, klass, rvals, lane, width, lam1, lam2)
+    return ref.lemma1_merge_ref(p, klass, rvals, lane, width, lam1, lam2)

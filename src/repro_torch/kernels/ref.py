@@ -240,3 +240,54 @@ def radix_argsort_ref(words: Sequence[torch.Tensor], key_bits,
     (`lsd_argsort`) with `radix_pass_counts_ref` and `radix_scatter_ref`."""
     return lsd_argsort(words, key_bits, radix_pass_counts_ref,
                        radix_scatter_ref, block)
+
+
+def lemma1_merge_ref(p: torch.Tensor, klass: torch.Tensor,
+                     rvals: torch.Tensor, lane: torch.Tensor,
+                     width: torch.Tensor, lam1: torch.Tensor,
+                     lam2: torch.Tensor) -> torch.Tensor:
+    """Place the rows of every tie group in Lemma-1 comparator order.
+
+    `p` (int64[U]) are the rows' positions, `klass` their classes, `rvals`
+    (int64[U, |D|]) their sample ranks and `lam1` / `lam2` (int64[v, v])
+    the Lemma-1 column tables. Row j precedes row i, of classes b and a,
+    iff (rvals[j, lam1[b, a]], p[j]) < (rvals[i, lam2[b, a]], p[i]).
+
+    The rows come sorted by (group, class, key, p), the key of a class-k
+    row being rvals[i, lam1[k, k]]; row i's group holds the slice
+    [i - lane[i], i - lane[i] + width[i]) (here one searchsorted over
+    (group, class) finds every class segment, and the widest group bounds
+    the binary searches' steps). Row i
+    of class a lands at its group's start plus, for each class b, the
+    number of the group's class-b rows that precede it: for b = a its
+    offset in its own class segment, for b != a a binary search of the
+    class-b segment, which the key order also orders by that comparator.
+    Returns int64[U]: the
+    positions p in their slots. Where the ranks follow no suffix order (a
+    failed exchange's), destinations may collide; a slot left unwritten
+    keeps the p it held, so every entry stays a position of its group."""
+    n = p.shape[0]
+    v = lam1.shape[0]
+    idx = torch.arange(n, device=p.device)
+    start = idx - lane
+    seg = start * v + klass                 # ascending: (group, class)
+    dest = start.clone()
+    steps = int(width.max()).bit_length() if n else 0   # a segment's search
+    for b in range(v):
+        first = torch.searchsorted(seg, start * v + b)
+        lo = first
+        hi = torch.searchsorted(seg, start * v + b + 1)
+        col = lam1[b, klass]
+        target = rvals.gather(1, lam2[b, klass][:, None])[:, 0]
+        for _ in range(steps):
+            active = lo < hi
+            mid = (lo + hi) // 2
+            j = mid.clamp(max=n - 1)
+            c = rvals[j, col]
+            before = active & ((c < target) | ((c == target) & (p[j] < p)))
+            lo = torch.where(before, mid + 1, lo)
+            hi = torch.where(active & ~before, mid, hi)
+        dest += torch.where(klass == b, idx - first, lo - first)
+    out = p.clone()
+    out[dest] = p
+    return out

@@ -19,9 +19,13 @@ from torch_pass_keys import PASS_KINDS, pass_keys
 
 pytestmark = pytest.mark.gpu
 
-#: the kernels a "radix" build launches on the card: the sort's two and the
-#: gathered dense rank (the window order's run starts, the sample ranks).
-RADIX_PATH = {"radix_hist", "radix_scatter", "dense_rank_gather"}
+#: the kernels a "radix" build launches on the card: the sort's two, the
+#: gathered dense rank (the window order's run starts, the sample ranks) and
+#: the Lemma-1 merge of the tie groups (after a class sort on the first two).
+RADIX_PATH = {"radix_hist", "radix_scatter", "dense_rank_gather",
+              "lemma1_merge"}
+#: a sparse build's: it has no Lemma-1 step.
+SPARSE_PATH = RADIX_PATH - {"lemma1_merge"}
 
 
 @pytest.fixture
@@ -217,19 +221,21 @@ def test_small_build_goes_through_the_kernels(cuda):
     for key in ops.LAUNCHES:
         ops.LAUNCHES[key] = 0
     idx = SuffixArrayIndex.from_docs(docs, device=cuda)
-    # "auto" on the card is the radix path: the sort's two kernels and the
-    # gathered dense rank launched, the bitonic ones and the rows form did
-    # not
+    # "auto" on the card is the radix path: the sort's two kernels, the
+    # gathered dense rank and the Lemma-1 merge launched, the bitonic ones
+    # and the rows form did not
     assert {k for k, v in ops.LAUNCHES.items() if v} == RADIX_PATH
     for key in ops.LAUNCHES:
         ops.LAUNCHES[key] = 0
     kernel = SuffixArrayIndex.from_docs(docs, SAOptions(sort_impl="kernel"),
                                         device=cuda)
     # the explicit "kernel" path: the shared-memory sort's two kernels and
-    # the rows form of the dense rank launched; the one-stage kernel,
-    # seg_boundary and the radix ones did not
+    # the rows form of the dense rank launched, and the radix ones and the
+    # merge for the Lemma-1 ties; the one-stage kernel, seg_boundary and
+    # the gathered dense rank did not
     assert {k for k, v in ops.LAUNCHES.items() if v} == {
-        "bitonic_tile", "bitonic_cross", "dense_rank_rows"}
+        "bitonic_tile", "bitonic_cross", "dense_rank_rows", "radix_hist",
+        "radix_scatter", "lemma1_merge"}
     cpu = SuffixArrayIndex.from_docs(docs, device="cpu")
     torch.testing.assert_close(idx.sa.cpu(), cpu.sa, rtol=0, atol=0)
     torch.testing.assert_close(kernel.sa.cpu(), cpu.sa, rtol=0, atol=0)
@@ -372,7 +378,7 @@ def test_small_radix_and_sparse_builds_match_cpu(cuda):
         ops.LAUNCHES[key] = 0
     sparse = SuffixArrayIndex.from_docs(docs, SAOptions(sample_rate=8),
                                         device=cuda)
-    assert {k for k, v in ops.LAUNCHES.items() if v} == RADIX_PATH
+    assert {k for k, v in ops.LAUNCHES.items() if v} == SPARSE_PATH
     sparse_cpu = build_sparse_suffix_array(cpu.text, 8, device="cpu")
     torch.testing.assert_close(sparse.sa.cpu(), sparse_cpu, rtol=0, atol=0)
     dense = cpu.sa.long()
