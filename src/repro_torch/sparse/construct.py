@@ -20,6 +20,12 @@ restricted to sampled positions.
 Every tensor stays on the build's device. The host reads one number per
 doubling round, the tie count, which sizes the compaction.
 
+Spans (`repro_torch.trace`): ``repro_torch.sparse.construct`` over the
+whole build, ``repro_torch.sparse.heads`` over step 1 and one
+``repro_torch.sparse.double`` a round of step 2 that found ties. Counters:
+``repro_torch.sparse.rounds`` (those rounds) and
+``repro_torch.sparse.tied_rows`` (the tie counts the rounds read).
+
 `sparse_lcp` computes the companion sparse LCP array on the host (numpy,
 as the reference does); the index computes it lazily, off the query path.
 """
@@ -31,6 +37,7 @@ import torch
 from ..core.compat import resolve_device
 from ..core.dcv_torch import _compact, _run_state
 from ..kernels.ops import dense_rank_gathered, radix_argsort
+from ..trace import count, span
 
 I64 = torch.int64
 
@@ -83,6 +90,11 @@ def build_sparse_suffix_array(text, sample_rate: int,
             f"sample_rate must be ≥ 2 for sparse construction, got {s} "
             f"(s = 1 is the dense path: repro_torch.api.build_suffix_array)")
     dev = resolve_device(device)
+    with span("repro_torch.sparse.construct"):
+        return _construct(text, s, dev)
+
+
+def _construct(text, s: int, dev: torch.device) -> torch.Tensor:
     if not isinstance(text, torch.Tensor):
         text = torch.from_numpy(np.asarray(text, np.int64))
     text = text.to(dev, I64).reshape(-1)
@@ -93,11 +105,12 @@ def build_sparse_suffix_array(text, sample_rate: int,
     if ns == 0:
         return torch.zeros(0, dtype=torch.int32, device=dev)
 
-    words, widths = _sampled_head_words(text, ns, s)
-    perm = radix_argsort(words, widths)
-    head_rank, is_start, _ = dense_rank_gathered(words, perm)
-    rank = torch.empty(ns, dtype=I64, device=dev)
-    rank[perm] = head_rank.long()
+    with span("repro_torch.sparse.heads"):
+        words, widths = _sampled_head_words(text, ns, s)
+        perm = radix_argsort(words, widths)
+        head_rank, is_start, _ = dense_rank_gathered(words, perm)
+        rank = torch.empty(ns, dtype=I64, device=dev)
+        rank[perm] = head_rank.long()
 
     # Stride doubling in sampled units: round h refines ties by the rank h
     # samples (h·s characters) later; ranks reflect 2h·s characters after
@@ -113,17 +126,20 @@ def build_sparse_suffix_array(text, sample_rate: int,
         u = int(tied.sum())
         if u == 0:
             break
-        sl = _compact(tied, u)                 # slots inside tie runs
-        run_id = torch.cumsum(is_start, 0) - 1
-        key2 = torch.full((ns,), -1, dtype=I64, device=dev)
-        key2[:ns - h] = rank[h:]
-        p = perm[sl]
-        packed = (run_id[sl] << kb) | (key2[p] + 1)
-        local = radix_argsort([packed], 2 * kb)
-        perm[sl] = p[local]
-        pk = packed[local]
-        is_start[sl[1:]] = pk[1:] != pk[:-1]
-        rank[perm] = torch.cumsum(is_start, 0) - 1
+        count("repro_torch.sparse.rounds")
+        count("repro_torch.sparse.tied_rows", u)
+        with span("repro_torch.sparse.double"):
+            sl = _compact(tied, u)             # slots inside tie runs
+            run_id = torch.cumsum(is_start, 0) - 1
+            key2 = torch.full((ns,), -1, dtype=I64, device=dev)
+            key2[:ns - h] = rank[h:]
+            p = perm[sl]
+            packed = (run_id[sl] << kb) | (key2[p] + 1)
+            local = radix_argsort([packed], 2 * kb)
+            perm[sl] = p[local]
+            pk = packed[local]
+            is_start[sl[1:]] = pk[1:] != pk[:-1]
+            rank[perm] = torch.cumsum(is_start, 0) - 1
         h *= 2
     return (perm * s).to(torch.int32)
 

@@ -24,6 +24,7 @@ from ..api.index import SuffixArrayIndex, encode_docs
 from ..api.options import SAOptions
 from ..api.query import QueryBatch
 from ..core.compat import resolve_device
+from ..trace import span
 from .construct import build_sparse_suffix_array, sparse_lcp
 from .query import sparse_ranges, verify_alignments
 
@@ -92,8 +93,9 @@ class SparseSuffixArrayIndex(SuffixArrayIndex):
         opts = options if options is not None else SAOptions()
         if overrides:
             opts = opts.replace(**overrides)
-        text = torch.as_tensor(np.asarray(text, np.int64),
-                               device=resolve_device(device))
+        with span("repro_torch.index.upload"):
+            text = torch.as_tensor(np.asarray(text, np.int64),
+                                   device=resolve_device(device))
         sa = build_sparse_suffix_array(text, opts.sample_rate, device=device)
         return cls(text, sa, sample_rate=opts.sample_rate, shift=0,
                    options=opts, sigma=sigma, device=device)
@@ -107,7 +109,8 @@ class SparseSuffixArrayIndex(SuffixArrayIndex):
         if overrides:
             opts = opts.replace(**overrides)
         text, starts, n_docs = encode_docs(docs)
-        text = torch.as_tensor(text, device=resolve_device(device))
+        with span("repro_torch.index.upload"):
+            text = torch.as_tensor(text, device=resolve_device(device))
         sa = build_sparse_suffix_array(text, opts.sample_rate, device=device)
         return cls(text, sa, sample_rate=opts.sample_rate, doc_starts=starts,
                    shift=n_docs, options=opts, sigma=sigma, device=device)

@@ -1,4 +1,4 @@
-"""Named spans at the layer boundaries of the build path.
+"""Named spans at the layer boundaries of the build path, and counters.
 
 `span(name)` marks a region for `torch.profiler`: with the profiler on,
 the region is a host event named `name` in the same kineto trace, on the
@@ -11,15 +11,23 @@ annotation: kineto copies every user annotation onto the device timeline
 as a `gpu_user_annotation` interval, which a reader that unions the
 device's intervals would take for work. Every name starts with
 ``repro_torch.``.
+
+`count(name, n)` adds to a process-wide counter, whether or not the
+profiler runs; it adds host integers the caller already holds and reads
+nothing from the device. `counters()` is a snapshot: a reader takes the
+difference of two.
 """
 from __future__ import annotations
 
 import contextlib
+import threading
 
 import torch
 from torch._C._profiler import _RecordFunctionFast
 
 _OFF = contextlib.nullcontext()
+_COUNTS: dict[str, int] = {}
+_COUNTS_LOCK = threading.Lock()      # count() may run on any thread
 
 
 def span(name: str):
@@ -27,3 +35,16 @@ def span(name: str):
     if not torch.autograd._profiler_enabled():
         return _OFF
     return _RecordFunctionFast(name)
+
+
+def count(name: str, n: int = 1) -> None:
+    """Add `n` to the counter `name` (a host integer, no device read)."""
+    with _COUNTS_LOCK:
+        _COUNTS[name] = _COUNTS.get(name, 0) + n
+
+
+def counters() -> dict[str, int]:
+    """A snapshot of every counter: name -> total since the process
+    started."""
+    with _COUNTS_LOCK:
+        return dict(_COUNTS)
