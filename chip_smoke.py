@@ -361,8 +361,13 @@ PATH_KERNELS = {"kernel": {"bitonic_tile", "bitonic_cross", "dense_rank_rows",
                 "sparse": {"radix_hist", "radix_scatter", "dense_rank_gather"},
                 "bsp": {"radix_hist", "radix_scatter", "dense_rank_gather",
                         "lemma1_merge"}}
+#: what `SuffixArrayIndex.from_docs` launches before any of those: the
+#: corpus layout (`api.index.stage_docs`). Every path checked below enters
+#: through `from_docs`, except phase 12 (b)'s direct builds.
+STAGE_KERNELS = {"encode_place"}
 #: every kernel the builds of phase 8 must launch between them.
-SERVING_KERNELS = PATH_KERNELS["radix"] | PATH_KERNELS["sparse"]
+SERVING_KERNELS = PATH_KERNELS["radix"] | PATH_KERNELS["sparse"] | \
+    STAGE_KERNELS
 
 #: phase 6: the tie payload `lemma1_merge` is timed on, from one build of
 #: the infini-gram cell's corpus at this seed.
@@ -533,11 +538,14 @@ def zero_launches() -> None:
         ops.LAUNCHES[key] = 0
 
 
-def launched(dev, path: str, launches: dict) -> None:
-    """On the card, exactly the kernels of `path` must have launched."""
+def launched(dev, path: str, launches: dict, staged: bool = True) -> None:
+    """On the card, exactly the kernels of `path` must have launched, and
+    the corpus layout's where the build came through `from_docs`
+    (`staged`)."""
     if dev.type == "cuda":
         got = {k for k, v in launches.items() if v}
-        assert got == PATH_KERNELS[path], (path, launches)
+        want = PATH_KERNELS[path] | (STAGE_KERNELS if staged else set())
+        assert got == want, (path, launches)
 
 
 def scan_offsets(digits, n: int, block: int):
@@ -1581,6 +1589,54 @@ def lemma1_merge_times(dev, launches, bandwidth: float) -> dict:
             "library_call": "none: no PyTorch call merges by a comparator"}
 
 
+def encode_place_times(dev, launches, bandwidth: float,
+                       config=LEMMA1_CONFIG, seed: int = LEMMA1_SEED) -> dict:
+    """`encode_place` on the infini-gram cell's corpus (its documents back
+    to back, as `stage_docs` uploads them) against its plain version and
+    its bound, beside the whole staging of those documents on the host
+    clock (`stage_docs`: the lengths, the concatenate into pinned memory,
+    the copy, the kernel and the flag's read)."""
+    import torch
+    from repro_torch.api.index import stage_docs
+    from repro_torch.kernels import ops, ref
+    sys.path.insert(0, str(ROOT))
+    from sabench import corpus
+    data = corpus.make_corpus(json.loads(Path(config).read_text()), seed, dev)
+    flat, ends = data.data, torch.cumsum(data.lengths, 0)
+    n, d = flat.numel(), ends.numel()
+    ms = time_ms(lambda: ops.encode_place(flat, ends), dev, reps=20)
+    plain_ms = time_ms(lambda: ref.encode_place_ref(flat, ends), dev, reps=2)
+    got, want = ops.encode_place(flat, ends), ref.encode_place_ref(flat, ends)
+    err = max(require_equal("encode_place text", got[0], want[0]),
+              require_equal("encode_place flag", got[1], want[1]))
+    stage_s = []
+    for _ in range(3):
+        sync(dev)
+        t0 = time.perf_counter()
+        stage_docs(data.docs, dev)
+        sync(dev)
+        stage_s.append(time.perf_counter() - t0)
+    del data, flat, ends, got, want
+    empty_cache(dev)
+    return {"name": "encode_place", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/encode_place.cu",
+            "replaces": None,
+            "replaces_note": "no TPU kernel: the JAX package encodes the "
+                             "corpus on the host (src/repro/api/index.py, "
+                             "encode_docs)",
+            "launches": launches.get("encode_place", 0),
+            "max_abs_err": err,
+            "function": f"the sentinel-separator layout of the infini-gram "
+                        f"cell's corpus (seed {seed}): {n} tokens, {d} "
+                        f"documents",
+            "ms": ms, "plain_ms": plain_ms,
+            # each token read and written once, each document's end read
+            # and its separator written once (8 bytes each)
+            "bound_ms": 1e3 * 16 * (n + d) / bandwidth, "bound_by": "bytes",
+            "stage_docs_s": stage_s, "library_ms": None,
+            "library_call": "none: no one PyTorch call lays out a corpus"}
+
+
 def trace_build(dev, label: str, build, top: int = 10) -> dict:
     """Device time by kernel over one call of build() under torch.profiler,
     the device's idle share of its wall time and the host calls with the most
@@ -2349,9 +2405,10 @@ def lm_phase(dev) -> dict:
     n_params = param_count(model)
     launched = {k for k, v in seen["launches"].items() if v}
     if cuda:
-        assert launched == PATH_KERNELS["radix"], seen["launches"]
+        assert launched == PATH_KERNELS["radix"] | STAGE_KERNELS, \
+            seen["launches"]
         assert {k for k, v in seen["plane_launches"].items() if v} == \
-            PATH_KERNELS["radix"], seen["plane_launches"]
+            PATH_KERNELS["radix"] | STAGE_KERNELS, seen["plane_launches"]
     assert len(seen["steps"]) == 4 and not any(seen["steps"]), seen["steps"]
     assert math.isfinite(report["loss"]) and \
         report["loss"] < math.log(cfg.vocab_size) + 3, report
@@ -2550,9 +2607,9 @@ def moe_train(dev) -> tuple[dict, dict]:
     launches = dict(ops.LAUNCHES)
     if cuda:
         assert {k for k, v in launches.items() if v} == \
-            PATH_KERNELS["radix"], launches
+            PATH_KERNELS["radix"] | STAGE_KERNELS, launches
         assert {k for k, v in plane_launches.items() if v} == \
-            PATH_KERNELS["radix"], plane_launches
+            PATH_KERNELS["radix"] | STAGE_KERNELS, plane_launches
     losses = [s["loss"] for s in steps]
     assert all(map(math.isfinite, losses)), steps
     assert losses[-1] < math.log(cfg.vocab_size) + 3, steps
@@ -2882,7 +2939,7 @@ def bsp_phase(dev, idx, docs, pats, counts) -> tuple[dict, dict]:
         sec = time.perf_counter() - t0
         assert torch.equal(sa, small.sa), f"{impl} p={p} SA differs"
         if impl == "radix":
-            launched(dev, "bsp", dict(ops.LAUNCHES))
+            launched(dev, "bsp", dict(ops.LAUNCHES), staged=False)
         others.append({"impl": impl, "p": p, "n": small.n, "build_s": sec,
                        "counters": c.summary() if p > 1 else None,
                        "launches": dict(ops.LAUNCHES)})
@@ -3234,7 +3291,7 @@ def train_state_phase(dev) -> tuple[dict, dict]:
     resume, launches = adafactor_resume(dev)
     if cuda:
         assert {k for k, v in launches.items() if v} == \
-            PATH_KERNELS["radix"], launches
+            PATH_KERNELS["radix"] | STAGE_KERNELS, launches
     parity = adafactor_card_against_cpu(dev)
     return {"card": card_line() if cuda else "cpu", "resume": resume,
             "card_against_cpu": parity,
@@ -3272,8 +3329,9 @@ def main() -> int:
     table.append(dense_rank_gather_times(
         dev, default_build_ranks(dev, idx.text), launches, bandwidth))
     table.append(lemma1_merge_times(dev, launches, bandwidth))
+    table.append(encode_place_times(dev, launches, bandwidth))
     for entry in table:
-        if entry["name"] in PATH_KERNELS["sparse"]:
+        if entry["name"] in PATH_KERNELS["sparse"] | STAGE_KERNELS:
             entry["launches_sparse"] = sparse["launches"][entry["name"]]
     per_level = bitonic_levels(dev, levels, bandwidth)
     del levels

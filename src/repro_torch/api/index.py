@@ -6,9 +6,10 @@ The port of `repro.api.index`:
 * `SuffixArrayIndex.from_docs(docs, options, device=)` — a multi-document
   corpus in the sentinel-separator layout (`encode_docs`: doc i ends with
   a unique separator of value i placed BELOW the shifted data alphabet,
-  so no suffix comparison crosses a document boundary). A plan with
-  ``sample_rate > 1`` builds a `repro_torch.sparse.SparseSuffixArrayIndex`
-  instead;
+  so no suffix comparison crosses a document boundary), made on the
+  device by `stage_docs` (one concatenate on the host, one copy, one
+  `encode_place` launch). A plan with ``sample_rate > 1`` builds a
+  `repro_torch.sparse.SparseSuffixArrayIndex` instead;
 * `index_from_numpy_state(state, device=)` — carry an index built
   elsewhere (text, sa, doc_starts, shift, sigma as numpy arrays and ints,
   e.g. those of a `repro.api.SuffixArrayIndex`) onto the device;
@@ -39,8 +40,9 @@ import numpy as np
 import torch
 
 from ..core.compat import resolve_device
+from ..kernels import ops
 from ..text.lcp import lcp_kasai, repeated_substring_spans
-from ..trace import span
+from ..trace import count, span
 from .build import build_suffix_array
 from .options import SAOptions
 from .query import QueryBatch, batch_ranges, stage_batch
@@ -91,6 +93,62 @@ def longest_match_len(index, seq) -> int:
     return lo
 
 
+def _doc_parts(docs) -> tuple[list, np.ndarray]:
+    """The documents as the parts of one concatenate, and their lengths
+    (int64[n_docs]), in one pass over `docs`.
+
+    An integer ndarray is its own part. Any other document (a list, a float
+    array) is converted with ``np.asarray(d, np.int64)``, and each one is
+    counted in ``repro_torch.index.docs_converted``. Raises `ValueError`
+    naming the first document that is not 1-D."""
+    parts, lengths, converted = docs, [], 0
+    for i, d in enumerate(docs):
+        if not isinstance(d, np.ndarray) or d.dtype.kind not in "iu":
+            if parts is docs:
+                parts = list(docs)
+            parts[i] = d = np.asarray(d, np.int64)
+            converted += 1
+        if d.ndim != 1:
+            raise ValueError(f"doc {i} must be 1-D, got shape {d.shape}")
+        lengths.append(len(d))
+    count("repro_torch.index.docs_converted", converted)
+    return parts, np.array(lengths, np.int64)
+
+
+def stage_docs(docs, device="cuda") -> tuple[torch.Tensor, np.ndarray, int]:
+    """The sentinel-separator corpus layout (`encode_docs`) made on
+    `device`: returns (text int64[N] on `device`, doc_starts int64[n_docs],
+    n_docs).
+
+    The host measures the documents and copies them back to back into one
+    buffer, pinned when `device` is a CUDA device (PyTorch's caching host
+    allocator hands the same block to the next corpus of that size); one
+    copy takes it and the documents' ends to the device, where
+    `ops.encode_place` shifts the data and places the separators in one
+    pass and flags a negative token. Only then does the host look for the
+    document that holds it."""
+    device = resolve_device(device)
+    n_docs = len(docs)
+    if n_docs == 0:
+        return (torch.zeros(0, dtype=torch.int64, device=device),
+                np.zeros(0, np.int64), 0)
+    pin = device.type == "cuda"
+    with span("repro_torch.index.encode_docs"):
+        parts, lengths = _doc_parts(docs)
+        ends = torch.empty(n_docs, dtype=torch.int64, pin_memory=pin)
+        np.cumsum(lengths, out=ends.numpy())
+        flat = torch.empty(int(ends[-1]), dtype=torch.int64, pin_memory=pin)
+        np.concatenate(parts, out=flat.numpy(), casting="unsafe")
+    with span("repro_torch.index.upload"):
+        text, negative = ops.encode_place(flat.to(device, non_blocking=True),
+                                          ends.to(device, non_blocking=True))
+        if negative.item():
+            j = int(np.argmax(flat.numpy() < 0))
+            doc = int(np.searchsorted(ends.numpy(), j, "right"))
+            raise ValueError(f"doc {doc} has negative values")
+    return text, ends.numpy() - lengths + np.arange(n_docs), n_docs
+
+
 def encode_docs(docs) -> tuple[np.ndarray, np.ndarray, int]:
     """Sentinel-separator corpus layout: data values are shifted up by
     n_docs and doc i is terminated by separator value i. Separators are
@@ -98,25 +156,11 @@ def encode_docs(docs) -> tuple[np.ndarray, np.ndarray, int]:
     (b) below the data alphabet, so separator suffixes cluster at the front
     of the SA.
 
-    Returns (text int64[N], doc_starts int64[n_docs], n_docs).
+    Returns (text int64[N], doc_starts int64[n_docs], n_docs), on the host
+    (`stage_docs` on the CPU).
     """
-    n_docs = len(docs)
-    if n_docs == 0:
-        return np.zeros(0, np.int64), np.zeros(0, np.int64), 0
-    with span("repro_torch.index.encode_docs"):
-        parts, starts, off = [], [], 0
-        for i, d in enumerate(docs):
-            d = np.asarray(d, np.int64)
-            if d.ndim != 1:
-                raise ValueError(f"doc {i} must be 1-D, got shape "
-                                 f"{d.shape}")
-            if len(d) and int(d.min()) < 0:
-                raise ValueError(f"doc {i} has negative values")
-            starts.append(off)
-            parts.append(d + n_docs)
-            parts.append(np.asarray([i], np.int64))
-            off += len(d) + 1
-        return (np.concatenate(parts), np.asarray(starts, np.int64), n_docs)
+    text, starts, n_docs = stage_docs(docs, "cpu")
+    return text.numpy(), starts, n_docs
 
 
 @dataclass(frozen=True)
@@ -202,9 +246,7 @@ class SuffixArrayIndex:
             from ..sparse import SparseSuffixArrayIndex
             return SparseSuffixArrayIndex.from_docs(docs, opts, sigma=sigma,
                                                     device=device)
-        text, starts, n_docs = encode_docs(docs)
-        with span("repro_torch.index.upload"):
-            text = torch.as_tensor(text, device=resolve_device(device))
+        text, starts, n_docs = stage_docs(docs, device)
         sa = build_suffix_array(text, opts, device=device)
         return cls(text, sa, doc_starts=starts, shift=n_docs, options=opts,
                    sigma=sigma, device=device)

@@ -28,14 +28,15 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 SOURCES = ("bitonic_stage.cu", "bitonic_sort.cu", "seg_boundary.cu",
            "radix_hist.cu", "radix_scatter.cu", "dense_rank.cu",
-           "lemma1_merge.cu")
+           "lemma1_merge.cu", "encode_place.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
 
 #: kernel name -> launches so far (plain ints; zero them to start a count).
 LAUNCHES = {"bitonic_stage": 0, "bitonic_tile": 0, "bitonic_cross": 0,
             "seg_boundary": 0, "radix_hist": 0, "radix_scatter": 0,
-            "dense_rank_rows": 0, "dense_rank_gather": 0, "lemma1_merge": 0}
+            "dense_rank_rows": 0, "dense_rank_gather": 0, "lemma1_merge": 0,
+            "encode_place": 0}
 
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 #: C entry point -> argument types (every entry point returns an int status).
@@ -63,6 +64,8 @@ _SIGNATURES = {
     # p, klass, rvals, lane, width, lam1, lam2, n, v, d, out, device, stream
     "repro_lemma1_merge": (_P, _P, _P, _P, _P, _P, _P, _LL, _I, _I, _P, _I,
                            _P),
+    # flat, ends, n, d, text, flag, device, stream
+    "repro_encode_place": (_P, _P, _LL, _LL, _P, _P, _I, _P),
 }
 
 _lib = None

@@ -25,13 +25,16 @@
   Lemma-1 class sort);
 * `lemma1_merge` — the tied rows of a level, class-sorted, placed in
   Lemma-1 comparator order in one pass (`lemma1_merge.cu`; every keyed
-  build's tie resolution, `core.dcv_torch._lemma1_order`).
+  build's tie resolution, `core.dcv_torch._lemma1_order`);
+* `encode_place` — the sentinel-separator text of a corpus made on the
+  device from its documents' tokens back to back (`encode_place.cu`;
+  `SuffixArrayIndex.from_docs` and every caller of `api.index.stage_docs`).
 
 Each wrapper picks its path from the tensor it is given: a CUDA tensor
 runs the hand-written kernel (`bitonic_stage.cu`, `bitonic_sort.cu`,
 `seg_boundary.cu`, `dense_rank.cu`, `radix_hist.cu`, `radix_scatter.cu`,
-`lemma1_merge.cu`), a CPU tensor runs the plain version in `ref`. Any other
-device raises.
+`lemma1_merge.cu`, `encode_place.cu`), a CPU tensor runs the plain version
+in `ref`. Any other device raises.
 `LAUNCHES` counts kernel launches by kernel name.
 """
 from __future__ import annotations
@@ -43,15 +46,17 @@ from ._build import LAUNCHES
 from .bitonic_sort import bitonic_launch_cuda, schedule
 from .bitonic_stage import bitonic_stage_cuda
 from .dense_rank import dense_rank_gather_cuda, dense_rank_rows_cuda
+from .encode_place import encode_place_cuda
 from .lemma1_merge import lemma1_merge_cuda
 from .radix_hist import radix_histogram_cuda, radix_pass_counts_cuda
 from .radix_scatter import radix_scatter_cuda
 from .seg_boundary import seg_boundary_cuda
 
 __all__ = ["LAUNCHES", "bitonic_launch", "bitonic_sort", "bitonic_stage",
-           "dense_rank_gathered", "dense_rank_sorted", "lemma1_merge",
-           "radix_argsort", "radix_histogram", "radix_histogram_blocks",
-           "radix_pass_counts", "radix_scatter", "seg_boundary"]
+           "dense_rank_gathered", "dense_rank_sorted", "encode_place",
+           "lemma1_merge", "radix_argsort", "radix_histogram",
+           "radix_histogram_blocks", "radix_pass_counts", "radix_scatter",
+           "seg_boundary"]
 
 
 def _on_cuda(t: torch.Tensor, op: str) -> bool:
@@ -222,3 +227,15 @@ def lemma1_merge(p: torch.Tensor, klass: torch.Tensor, rvals: torch.Tensor,
     if _on_cuda(p, "lemma1_merge"):
         return lemma1_merge_cuda(p, klass, rvals, lane, width, lam1, lam2)
     return ref.lemma1_merge_ref(p, klass, rvals, lane, width, lam1, lam2)
+
+
+def encode_place(flat: torch.Tensor,
+                 ends: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """The sentinel-separator text of a corpus whose documents' tokens lie
+    back to back in `flat`, with cumulative ends `ends`, and a flag raised
+    by a negative token: ``(text int64[N + D], negative int32[1])``; see
+    `ref.encode_place_ref`. On a CUDA tensor one launch of
+    `encode_place.cu`."""
+    if _on_cuda(flat, "encode_place"):
+        return encode_place_cuda(flat, ends)
+    return ref.encode_place_ref(flat, ends)

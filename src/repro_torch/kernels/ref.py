@@ -291,3 +291,24 @@ def lemma1_merge_ref(p: torch.Tensor, klass: torch.Tensor,
     out = p.clone()
     out[dest] = p
     return out
+
+
+def encode_place_ref(flat: torch.Tensor,
+                     ends: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """The sentinel-separator text of a corpus from its documents' tokens.
+
+    `flat` (int64[N]) holds the documents back to back and `ends`
+    (int64[D], non-decreasing, ``ends[-1] == N``) their cumulative ends.
+    Data token j of document k lands at ``j + k``, shifted up by D; document
+    k's separator, of value k, lands at ``ends[k] + k``, right after its
+    last token. Returns ``(text int64[N + D], negative int32[1])``, where
+    `negative` is 1 if any token is below 0 and 0 otherwise."""
+    d = ends.shape[0]
+    seps = ends + torch.arange(d, device=ends.device)
+    text = torch.empty(flat.shape[0] + d, dtype=torch.int64,
+                       device=flat.device)
+    data = torch.ones(text.shape[0], dtype=torch.bool, device=flat.device)
+    data[seps] = False
+    text[data] = flat + d
+    text[seps] = torch.arange(d, device=flat.device)
+    return text, (flat < 0).any().to(torch.int32).reshape(1)

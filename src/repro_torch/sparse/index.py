@@ -20,7 +20,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..api.index import SuffixArrayIndex, encode_docs
+from ..api.index import SuffixArrayIndex, stage_docs
 from ..api.options import SAOptions
 from ..api.query import QueryBatch
 from ..core.compat import resolve_device
@@ -108,9 +108,7 @@ class SparseSuffixArrayIndex(SuffixArrayIndex):
         opts = options if options is not None else SAOptions()
         if overrides:
             opts = opts.replace(**overrides)
-        text, starts, n_docs = encode_docs(docs)
-        with span("repro_torch.index.upload"):
-            text = torch.as_tensor(text, device=resolve_device(device))
+        text, starts, n_docs = stage_docs(docs, device)
         sa = build_sparse_suffix_array(text, opts.sample_rate, device=device)
         return cls(text, sa, sample_rate=opts.sample_rate, doc_starts=starts,
                    shift=n_docs, options=opts, sigma=sigma, device=device)

@@ -11,6 +11,7 @@ import pytest
 import torch
 
 from repro_torch.api import SAOptions, SuffixArrayIndex
+from repro_torch.api.index import stage_docs
 from repro_torch.core.dcv_torch import _order_from_words, suffix_array_torch
 from repro_torch.kernels import bitonic_sort as bsort
 from repro_torch.kernels import dense_rank, ops, ref
@@ -26,6 +27,8 @@ RADIX_PATH = {"radix_hist", "radix_scatter", "dense_rank_gather",
               "lemma1_merge"}
 #: a sparse build's: it has no Lemma-1 step.
 SPARSE_PATH = RADIX_PATH - {"lemma1_merge"}
+#: what `from_docs` launches before either build: the corpus layout.
+STAGE = {"encode_place"}
 
 
 @pytest.fixture
@@ -224,7 +227,7 @@ def test_small_build_goes_through_the_kernels(cuda):
     # "auto" on the card is the radix path: the sort's two kernels, the
     # gathered dense rank and the Lemma-1 merge launched, the bitonic ones
     # and the rows form did not
-    assert {k for k, v in ops.LAUNCHES.items() if v} == RADIX_PATH
+    assert {k for k, v in ops.LAUNCHES.items() if v} == RADIX_PATH | STAGE
     for key in ops.LAUNCHES:
         ops.LAUNCHES[key] = 0
     kernel = SuffixArrayIndex.from_docs(docs, SAOptions(sort_impl="kernel"),
@@ -235,7 +238,7 @@ def test_small_build_goes_through_the_kernels(cuda):
     # the gathered dense rank did not
     assert {k for k, v in ops.LAUNCHES.items() if v} == {
         "bitonic_tile", "bitonic_cross", "dense_rank_rows", "radix_hist",
-        "radix_scatter", "lemma1_merge"}
+        "radix_scatter", "lemma1_merge"} | STAGE
     cpu = SuffixArrayIndex.from_docs(docs, device="cpu")
     torch.testing.assert_close(idx.sa.cpu(), cpu.sa, rtol=0, atol=0)
     torch.testing.assert_close(kernel.sa.cpu(), cpu.sa, rtol=0, atol=0)
@@ -362,6 +365,41 @@ def test_radix_argsort_kernels_match_stable_sort_passes(cuda, n, kind):
                                rtol=0, atol=0)
 
 
+def test_encode_place_kernel_matches_plain(cuda):
+    """A ragged corpus of 120,000 documents, a tenth of them empty, laid out
+    by the kernel and by its plain version; then with one negative token
+    in the last document, which the flag and `stage_docs` must report."""
+    rng = np.random.default_rng(28)
+    lengths = rng.integers(1, 300, 120_000)
+    lengths[rng.random(len(lengths)) < 0.1] = 0
+    lengths[[0, -1]] = 0, 57
+    ends = np.cumsum(lengths)
+    flat = rng.integers(0, 32_000, int(ends[-1]))
+    docs = np.split(flat, ends[:-1])
+    for negative in (False, True):
+        if negative:
+            flat[ends[-1] - 20] = -3        # a view: docs[-1] sees it too
+        want = ref.encode_place_ref(torch.from_numpy(flat),
+                                    torch.from_numpy(ends))
+        before = ops.LAUNCHES["encode_place"]
+        got = ops.encode_place(torch.from_numpy(flat).to(cuda),
+                               torch.from_numpy(ends).to(cuda))
+        assert ops.LAUNCHES["encode_place"] == before + 1
+        assert int(want[1]) == negative
+        for g, w in zip(got, want):
+            torch.testing.assert_close(g.cpu(), w, rtol=0, atol=0)
+        if negative:
+            with pytest.raises(ValueError,
+                               match=f"doc {len(docs) - 1} has negative"):
+                stage_docs(docs, cuda)
+        else:
+            text, starts, n_docs = stage_docs(docs, cuda)
+            host = stage_docs(docs, "cpu")
+            torch.testing.assert_close(text.cpu(), host[0], rtol=0, atol=0)
+            np.testing.assert_array_equal(starts, host[1])
+            assert n_docs == host[2] == len(docs)
+
+
 def test_small_radix_and_sparse_builds_match_cpu(cuda):
     rng = np.random.default_rng(5)
     docs = [rng.integers(0, 6, 2500) for _ in range(4)]
@@ -370,7 +408,7 @@ def test_small_radix_and_sparse_builds_match_cpu(cuda):
         ops.LAUNCHES[key] = 0
     radix = SuffixArrayIndex.from_docs(docs, SAOptions(sort_impl="radix"),
                                        device=cuda)
-    assert {k for k, v in ops.LAUNCHES.items() if v} == RADIX_PATH
+    assert {k for k, v in ops.LAUNCHES.items() if v} == RADIX_PATH | STAGE
     cpu = SuffixArrayIndex.from_docs(docs, SAOptions(sort_impl="radix"),
                                      device="cpu")
     torch.testing.assert_close(radix.sa.cpu(), cpu.sa, rtol=0, atol=0)
@@ -378,7 +416,7 @@ def test_small_radix_and_sparse_builds_match_cpu(cuda):
         ops.LAUNCHES[key] = 0
     sparse = SuffixArrayIndex.from_docs(docs, SAOptions(sample_rate=8),
                                         device=cuda)
-    assert {k for k, v in ops.LAUNCHES.items() if v} == SPARSE_PATH
+    assert {k for k, v in ops.LAUNCHES.items() if v} == SPARSE_PATH | STAGE
     sparse_cpu = build_sparse_suffix_array(cpu.text, 8, device="cpu")
     torch.testing.assert_close(sparse.sa.cpu(), sparse_cpu, rtol=0, atol=0)
     dense = cpu.sa.long()
@@ -524,7 +562,8 @@ def test_data_plane_on_the_card_equals_the_cpu_port(cuda):
         st = card.ingest_shard(shard)
         assert st.builds == 1
         # each segment build ran the radix path, "auto" on the card
-        assert {k for k, v in ops.LAUNCHES.items() if v} == RADIX_PATH
+        assert {k for k, v in ops.LAUNCHES.items() if v} == \
+            RADIX_PATH | STAGE
     assert card.index.device.type == "cuda"
     assert card.gate.index.sa.device.type == "cuda"
     cpu = TrainingDataPlane(cfg, eval_docs=eval_docs, shards=shards,
