@@ -122,9 +122,9 @@ def level0_inputs(dev):
     docs = cs.make_corpus(cs.N_DOCS, cs.DOC_LEN, cs.SEED)
     text = SuffixArrayIndex.from_docs(docs, SAOptions(), device=dev).text
     xp, n_v, v, _, _ = cs.window_levels(dev, text)[0]
-    srt = ops.bitonic_sort(dcv_torch._window_rows(xp, n_v, v))
+    srt = ops.bitonic_sort(dcv_torch.window_rows(xp, n_v, v))
     order = srt[:n_v, v].long()
-    in_d = dcv_torch._cover_constants(v, dev)[1]
+    in_d = dcv_torch.cover_constants(v, dev)[1]
     samples = srt[:n_v, :v][in_d[order % v]].contiguous()
     (_, _, words, window), (_, _, _, sp) = cs.default_build_ranks(dev,
                                                                    text)[:2]

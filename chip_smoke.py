@@ -645,7 +645,7 @@ def dense_rank_against_plain(dev, scale: int = 1) -> None:
     positions sorted and permuted. Each case runs twice in a row (the
     second call on fresh scratch)."""
     import torch
-    from repro_torch.core.dcv_torch import _order_from_words
+    from repro_torch.core.words import argsort_words
     from repro_torch.kernels import dense_rank, ops, ref
     tile = dense_rank.TILE_ROWS
     g = torch.Generator(device=dev).manual_seed(SEED)
@@ -681,7 +681,7 @@ def dense_rank_against_plain(dev, scale: int = 1) -> None:
         for k, hi in ((1, 2 ** 45), (1, 64), (2, 16), (17, 2)):
             words = [torch.randint(0, hi, (2 * n,), generator=g, device=dev)
                      for _ in range(k)]
-            pos = _order_from_words(words)[::2].contiguous()
+            pos = argsort_words(words, None, "torch")[::2].contiguous()
             gather_case(f"N={n} K={k} hi={hi}", words, pos)
             perm = torch.randperm(n, generator=g, device=dev)
             gather_case(f"N={n} K={k} hi={hi} permuted", words, pos[perm])
@@ -698,7 +698,7 @@ def dense_rank_against_plain(dev, scale: int = 1) -> None:
         words = [torch.zeros(n, dtype=torch.int64, device=dev)] * (k - 1)
         words.append(torch.randint(0, 2, (n,), generator=g, device=dev))
         gather_case(f"N={n} K={k} (the cap)", words,
-                    _order_from_words(words[-1:]))
+                    argsort_words(words[-1:], None, "torch"))
     log(f"dense_rank against plain: {checked} launches equal")
 
 
@@ -734,7 +734,7 @@ def bitonic_launches_against_plain(dev, rng) -> None:
 def radix_against_plain(dev, scale: int = 1) -> None:
     import numpy as np
     import torch
-    from repro_torch.core.dcv_torch import _order_from_words
+    from repro_torch.core.words import argsort_words
     from repro_torch.kernels import ops, ref
     rng = np.random.default_rng(SEED + 7)
     # the sweeps of tests/kernels/test_kernel_parity.py, then N = 2^24
@@ -808,7 +808,7 @@ def radix_against_plain(dev, scale: int = 1) -> None:
             require_equal(f"radix_argsort {kind} N={n}", got,
                           ref.radix_argsort_ref(words, bits))
             require_equal(f"radix_argsort {kind} N={n} (torch.sort)", got,
-                          _order_from_words(words))
+                          argsort_words(words, bits, "torch"))
 
 
 # --------------------------------------------------------------- phase 3
@@ -1017,13 +1017,13 @@ def window_levels(dev, text) -> list:
     from repro_torch.api import SAOptions, build_suffix_array
     from repro_torch.core import dcv_torch
     seen = []
-    window_order = dcv_torch._window_order
+    window_order = dcv_torch.window_order
 
     def record(xp, n_v, v, lo, hi, impl):
         seen.append((xp, n_v, v, lo, hi))
         return window_order(xp, n_v, v, lo, hi, impl)
 
-    with mock.patch.object(dcv_torch, "_window_order", record):
+    with mock.patch.object(dcv_torch, "window_order", record):
         build_suffix_array(text, SAOptions(sort_impl="kernel"), device=dev)
     return seen
 
@@ -1032,11 +1032,11 @@ def library_sort(words):
     """One PyTorch library sort of a level's packed window words, and what
     it is."""
     import torch
-    from repro_torch.core import dcv_torch
+    from repro_torch.core.words import argsort_words
     if len(words) == 1:
         return (lambda: torch.sort(words[0], stable=True),
                 "torch.sort(stable=True) of the packed int64 window key")
-    return (lambda: dcv_torch._order_from_words(words),
+    return (lambda: argsort_words(words, None, "torch"),
             f"{len(words)} stable torch.sort passes of packed keys")
 
 
@@ -1071,13 +1071,14 @@ def bitonic_levels(dev, levels, bandwidth: float) -> list[dict]:
     sort of the level's packed words; each sort's order must equal the
     library's."""
     from repro_torch.core import dcv_torch
+    from repro_torch.core.words import argsort_words
     from repro_torch.kernels import bitonic_sort as bsort
     from repro_torch.kernels import ops
     out = []
     for level, (xp, n_v, v, lo, hi) in enumerate(levels):
-        rows = dcv_torch._window_rows(xp, n_v, v)
+        rows = dcv_torch.window_rows(xp, n_v, v)
         n2, w = rows.shape
-        words = dcv_torch._window_words(xp, n_v, v, lo, hi)
+        words, bits = dcv_torch.window_words(xp, n_v, v, lo, hi)
         zero_launches()
         srt = ops.bitonic_sort(rows)
         n_launches = ops.LAUNCHES["bitonic_tile"] + \
@@ -1086,7 +1087,7 @@ def bitonic_levels(dev, levels, bandwidth: float) -> list[dict]:
             assert n_launches == len(bsort.schedule(n2, w)), level
         err = require_equal(f"bitonic_sort level {level} (torch.sort order)",
                             srt[:n_v, v].long(),
-                            dcv_torch._order_from_words(words))
+                            argsort_words(words, bits, "torch"))
         require_equal(f"bitonic_sort level {level} (one stage a launch)",
                       srt, stage_sort(rows))
         lib_fn, lib_note = library_sort(words)
@@ -1112,7 +1113,7 @@ def bitonic_times(dev, level0, launches, bandwidth: float):
     from repro_torch.kernels import bitonic_sort as bsort
     from repro_torch.kernels import ops
     xp, n_v, v, lo, hi = level0
-    rows = dcv_torch._window_rows(xp, n_v, v)
+    rows = dcv_torch.window_rows(xp, n_v, v)
     n2, w = rows.shape
     sched = bsort.schedule(n2, w)
     stages = (n2.bit_length() - 1) * n2.bit_length() // 2
@@ -1120,7 +1121,7 @@ def bitonic_times(dev, level0, launches, bandwidth: float):
         f"bitonic stages in {len(sched)} launches")
     one_pass_ms = 1e3 * 2 * rows.numel() * 4 / bandwidth
     lib_fn, lib_note = library_sort(
-        dcv_torch._window_words(xp, n_v, v, lo, hi))
+        dcv_torch.window_words(xp, n_v, v, lo, hi)[0])
     lib_sort_ms = time_ms(lib_fn, dev, reps=3)
 
     sort_ms = time_ms(lambda: ops.bitonic_sort(rows), dev, reps=3)
@@ -1223,17 +1224,18 @@ def bitonic_times(dev, level0, launches, bandwidth: float):
 def kernel_times(dev, levels, launches, bandwidth: float):
     import torch
     from repro_torch.core import dcv_torch
+    from repro_torch.core.words import argsort_words
     from repro_torch.kernels import ops, ref
     bitonic, out = bitonic_times(dev, levels[0], launches, bandwidth)
     lib_sort_ms = bitonic[-1]["library_ms"]
     lib_note = bitonic[-1]["library_call"]
     xp, n_v, v, lo, hi = levels[0]
-    words = dcv_torch._window_words(xp, n_v, v, lo, hi)
+    words, bits = dcv_torch.window_words(xp, n_v, v, lo, hi)
     block = ref.SORT_BLOCK
 
     # Step-1 sample rows of level 0, in window-sorted order
     order = out[:n_v, v].long()
-    in_d = dcv_torch._cover_constants(v, dev)[1]
+    in_d = dcv_torch.cover_constants(v, dev)[1]
     samples = out[:n_v, :v][in_d[order % v]].contiguous()
     m = samples.shape[0]
     rank_ms = time_ms(lambda: ops.dense_rank_sorted(samples), dev, reps=20)
@@ -1260,7 +1262,6 @@ def kernel_times(dev, levels, launches, bandwidth: float):
     del padded
 
     # radix: one pass of the level-0 window word, then the whole argsort
-    bits = dcv_torch._word_bits(v, lo, hi)
     keys = words[0]
     nb = -(-n_v // block)
     counts_ms = time_ms(lambda: ops.radix_pass_counts(keys, 0, block), dev,
@@ -1355,7 +1356,7 @@ def kernel_times(dev, levels, launches, bandwidth: float):
     require_equal("radix_argsort level 0 (plain)", order0,
                   ref.radix_argsort_ref(words, bits))
     argsort_err = require_equal("radix_argsort level 0 (torch.sort)", order0,
-                                dcv_torch._order_from_words(words))
+                                argsort_words(words, bits, "torch"))
     passes = sum(-(-b // 8) for b in bits)
     argsort_bytes = n_v * 8 * (len(words) + 1)
     log(f"level 0 radix: word bits {bits}, {passes} passes, "
@@ -1514,16 +1515,16 @@ def dense_rank_gather_times(dev, calls, launches, bandwidth: float) -> dict:
 # --------------------------------------------------------------- phase 7
 def cell_tie_payloads(dev, config=LEMMA1_CONFIG, seed: int = LEMMA1_SEED):
     """One default build of a `sabench` cell's corpus, its Lemma-1 step
-    recorded: (the arguments of each `_lemma1_order` call, of each
+    recorded: (the arguments of each `lemma1_order` call, of each
     `lemma1_merge` call), each list by level, level 0 first (the
     recursion resolves the deepest level's ties first)."""
     from repro_torch.api import SuffixArrayIndex
-    from repro_torch.core import dcv_torch
+    from repro_torch.core import dcv_torch, words
     sys.path.insert(0, str(ROOT))
     from sabench import corpus
     data = corpus.make_corpus(json.loads(Path(config).read_text()), seed, dev)
     orders, merges = [], []
-    order, merge = dcv_torch._lemma1_order, dcv_torch.lemma1_merge
+    order, merge = dcv_torch.lemma1_order, words.lemma1_merge
 
     def record_order(*args):
         orders.append(args)
@@ -1533,8 +1534,8 @@ def cell_tie_payloads(dev, config=LEMMA1_CONFIG, seed: int = LEMMA1_SEED):
         merges.append(args)
         return merge(*args)
 
-    with mock.patch.object(dcv_torch, "_lemma1_order", record_order), \
-            mock.patch.object(dcv_torch, "lemma1_merge", record_merge):
+    with mock.patch.object(dcv_torch, "lemma1_order", record_order), \
+            mock.patch.object(words, "lemma1_merge", record_merge):
         SuffixArrayIndex.from_docs(data.docs, device=dev)
     sync(dev)
     return orders[::-1], merges[::-1]
@@ -1543,16 +1544,16 @@ def cell_tie_payloads(dev, config=LEMMA1_CONFIG, seed: int = LEMMA1_SEED):
 def lemma1_merge_times(dev, launches, bandwidth: float) -> dict:
     """`lemma1_merge` on the level-0 tie payload of the infini-gram cell's
     corpus against its plain version and its bound, beside the whole tie
-    resolution of that level (`_lemma1_order`: the class sort, its gathers
+    resolution of that level (`lemma1_order`: the class sort, its gathers
     and the merge); one `{"lemma1_level": ...}` line a level."""
-    from repro_torch.core import dcv_torch
+    from repro_torch.core.words import lemma1_order
     from repro_torch.kernels import ops, ref
     orders, merges = cell_tie_payloads(dev)
     for level, (args, margs) in enumerate(zip(orders, merges)):
         log(json.dumps({"lemma1_level": {
             "level": level, "rows": int(margs[0].numel()),
             "v": int(margs[5].shape[0]), "widest": int(margs[4].max()),
-            "order_ms": time_ms(lambda a=args: dcv_torch._lemma1_order(*a),
+            "order_ms": time_ms(lambda a=args: lemma1_order(*a),
                                 dev, reps=5),
             "merge_ms": time_ms(lambda a=margs: ops.lemma1_merge(*a), dev,
                                 reps=5)}}))
@@ -1563,9 +1564,9 @@ def lemma1_merge_times(dev, launches, bandwidth: float) -> dict:
     plain_ms = time_ms(lambda: ref.lemma1_merge_ref(*margs), dev, reps=2)
     err = require_equal("lemma1_merge level 0", ops.lemma1_merge(*margs),
                         ref.lemma1_merge_ref(*margs))
-    require_equal("lemma1 order level 0", dcv_torch._lemma1_order(*args),
+    require_equal("lemma1 order level 0", lemma1_order(*args),
                   ops.lemma1_merge(*margs))
-    order_ms = time_ms(lambda: dcv_torch._lemma1_order(*args), dev, reps=5)
+    order_ms = time_ms(lambda: lemma1_order(*args), dev, reps=5)
     # p, klass, lane, width read and out written (8 bytes each), and each
     # row's rvals once
     merge_bytes = rows * (40 + 8 * dsize)
@@ -1859,9 +1860,10 @@ def entry_point(dev, total: dict, root: str, n_docs: int = SERVE_DOCS,
     own."""
     import numpy as np
     import torch
-    from repro_torch.api import SuffixArrayIndex, builder_cache_stats
+    from repro_torch.api import SuffixArrayIndex
     from repro_torch.configs import get_config
     from repro_torch.launch.serve import serve_sa_queries
+    from repro_torch.trace import counters
     cfg = get_config("suffix-array")
     kw = {"n_chars": n_chars or cfg.n, "n_docs": n_docs,
           "n_queries": n_queries, "device": dev}
@@ -1881,11 +1883,12 @@ def entry_point(dev, total: dict, root: str, n_docs: int = SERVE_DOCS,
     cold = counted(dev, "radix", lambda: serve_sa_queries(
         cfg, store_dir=mono_dir, **kw), total)
     assert cold.store_status == "miss", cold.store_status
-    before = builder_cache_stats()
+    before = counters().get("repro_torch.builds", 0)
     warm = counted(dev, None, lambda: serve_sa_queries(
         cfg, store_dir=mono_dir, **kw), total)
     assert warm.store_status == "hit", warm.store_status
-    assert builder_cache_stats() == before, "a warm restart built"
+    assert counters().get("repro_torch.builds", 0) == before, \
+        "a warm restart built"
     assert torch.equal(warm.index.sa, cold.index.sa)
     seg = counted(dev, "radix", lambda: serve_sa_queries(
         cfg, store_dir=os.path.join(root, "segmented"),
@@ -2844,11 +2847,12 @@ def bsp_local_sort_check(dev, rows) -> dict:
     (rank 0's level-0 SM1 rows) against their plain versions, and timed
     beside the plain versions and the `torch.sort` key sort."""
     from repro_torch.bsp import psort
+    from repro_torch.core import words
     from repro_torch.kernels import ref
     cols = range(rows.shape[1])
     zero_launches()
     got = psort.argsort_rows(rows, cols, "radix")
-    with mock.patch.object(psort, "radix_argsort", ref.radix_argsort_ref):
+    with mock.patch.object(words, "radix_argsort", ref.radix_argsort_ref):
         err = require_equal("bsp level-0 local sort", got,
                             psort.argsort_rows(rows, cols, "radix"))
         plain_ms = time_ms(lambda: psort.argsort_rows(rows, cols, "radix"),

@@ -2,7 +2,7 @@
 registry, `SuffixArrayIndex` and the batched query engine, `QuerySession`,
 the segmented index (`SegmentedIndex`) and persistence (`IndexStore`,
 `SegmentedIndexStore`)."""
-from .build import build_suffix_array, builder_cache_stats, clear_builder_cache
+from .build import build_suffix_array
 from .index import (NgramStats, SuffixArrayIndex, encode_docs,
                     index_from_numpy_state, longest_match_len)
 from .options import SAOptions
@@ -18,9 +18,8 @@ __all__ = [
     "IndexStore", "NgramStats", "QueryBatch", "QuerySession", "SAOptions",
     "Segment", "SegmentedIndex", "SegmentedIndexStore", "StagedBatch",
     "StaleIndexError", "SuffixArrayIndex", "batch_ranges",
-    "build_suffix_array", "builder_cache_stats", "clear_builder_cache",
-    "clear_query_cache", "corpus_fingerprint", "encode_docs", "get_backend",
-    "index_from_numpy_state", "load_index", "longest_match_len",
+    "build_suffix_array", "clear_query_cache", "corpus_fingerprint",
+    "encode_docs", "get_backend", "index_from_numpy_state", "load_index", "longest_match_len",
     "pow2_bucket", "query_cache_stats", "register_backend",
     "registered_backends", "save_index", "stage_batch",
 ]

@@ -4,82 +4,18 @@ Validation, dtype normalisation and trivial-input fast paths live here so
 every backend sees the same contract (an int64 1-D tensor on the build's
 device, values in [0, 2³¹), n ≥ 2) and every caller gets the same result
 type: an int32[n] tensor on that device, a permutation of range(n).
-
-This module also owns the **builder cache**: one entry per
-``(resolved plan, device, bucketed length)``, where "resolved" means backend
-and sort_impl are concrete ("auto" and its resolution share an entry).
-Plans with ``options.cache=True`` run the torch backend with bucketed
-padding (`repro_torch.core.dcv_torch.pad_bucket`), so all lengths inside
-one bucket reach the same level shapes. Its hit/miss counters say whether
-a build landed on a configuration seen before;
-`builder_cache_stats()` / `clear_builder_cache()` expose them.
+Each build handed to a backend (n ≥ 2) adds one to the
+`repro_torch.trace` counter ``repro_torch.builds``.
 """
 from __future__ import annotations
-
-from typing import Callable
 
 import numpy as np
 import torch
 
-from ..core.compat import resolve_device, resolve_sort_impl
-from ..core.dcv_torch import pad_bucket
-from ..trace import span
+from ..core.compat import resolve_device
+from ..trace import count, span
 from .options import SAOptions
 from .registry import get_backend
-
-#: (backend, v0, schedule, base_threshold, resolved sort_impl, device,
-#: n_bucket) → (builder fn, resolved sort_impl).
-_BUILDER_CACHE: dict[tuple, tuple[Callable, str]] = {}
-_CACHE_STATS = {"hits": 0, "misses": 0}
-
-
-def builder_cache_stats() -> dict:
-    """Snapshot of the builder cache: entries / hits / misses."""
-    return {"entries": len(_BUILDER_CACHE), **_CACHE_STATS}
-
-
-def clear_builder_cache() -> None:
-    """Drop all builder-cache entries and reset the hit/miss counters."""
-    _BUILDER_CACHE.clear()
-    _CACHE_STATS["hits"] = 0
-    _CACHE_STATS["misses"] = 0
-
-
-def _resolved_impl(opts: SAOptions, backend: str,
-                   device: torch.device) -> str:
-    """Concrete sort_impl for this plan: the torch backend resolves by
-    device (`core.compat.resolve_sort_impl`), the bsp backend by
-    `bsp.psort.resolve_bsp_sort_impl` (imported lazily, so only bsp plans
-    load the BSP stack)."""
-    if backend == "torch":
-        return resolve_sort_impl(opts.sort_impl, device)
-    if backend == "bsp":
-        from ..bsp.psort import resolve_bsp_sort_impl
-        return resolve_bsp_sort_impl(opts.sort_impl, opts.pack_keys)
-    return opts.sort_impl
-
-
-def _cached_builder(opts: SAOptions, device: torch.device,
-                    n: int) -> tuple[Callable, SAOptions]:
-    """(builder, fully-resolved plan) for this plan, device and bucketed
-    length; the resolution is memoised."""
-    backend = opts.resolve_backend()
-    impl = _resolved_impl(opts, backend, device)
-    sched = (opts.schedule if isinstance(opts.schedule, str)
-             else id(opts.schedule))
-    key = (backend, opts.v0, sched, opts.base_threshold, impl, str(device),
-           pad_bucket(n))
-    entry = _BUILDER_CACHE.get(key)
-    if entry is None:
-        _CACHE_STATS["misses"] += 1
-        entry = (get_backend(backend), impl)
-        _BUILDER_CACHE[key] = entry
-    else:
-        _CACHE_STATS["hits"] += 1
-    builder, impl = entry
-    if impl != opts.sort_impl:
-        opts = opts.replace(sort_impl=impl)
-    return builder, opts
 
 
 def build_suffix_array(x, options: SAOptions | None = None, *,
@@ -134,10 +70,8 @@ def _build_suffix_array(x, options, device, overrides) -> torch.Tensor:
     if n <= 1:
         return torch.zeros(n, dtype=torch.int32, device=dev)
 
-    if opts.cache:
-        builder, opts = _cached_builder(opts, dev, n)
-    else:
-        builder = get_backend(opts.resolve_backend())
+    count("repro_torch.builds")
+    builder = get_backend(opts.resolve_backend())
     sa = torch.as_tensor(builder(x, opts)).to(device=dev, dtype=torch.int32)
     if opts.validate and sa.shape != (n,):
         raise RuntimeError(

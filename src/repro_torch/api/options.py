@@ -1,11 +1,11 @@
 """`SAOptions` — the single plan object for suffix-array construction.
 
-The port of `repro.api.options`, with the same fields, validation and
-`fingerprint`. Consumers construct one `SAOptions` and hand it to
+The port of `repro.api.options`, with the same validation and
+`fingerprint` and the same fields less `cache`: the JAX package's builder
+cache and bucketed padding bound its compiled shapes, and eager PyTorch
+compiles none. Consumers construct one `SAOptions` and hand it to
 `repro_torch.api.build_suffix_array`; backends read only the fields they
-understand. The dataclass is frozen, so the builder cache in
-`repro_torch.api.build` can key configurations by its fields.
-
+understand.
 """
 from __future__ import annotations
 
@@ -58,8 +58,6 @@ class SAOptions:
                     rank-local sorts (`repro_torch.bsp.psort`):
                     ``"radix"``, ``"torch"``, ``"bitonic"``, ``"auto"`` →
                     ``"radix"`` (``"torch"`` without `pack_keys`).
-    cache:          enable the builder cache and bucketed shape padding in
-                    `repro_torch.api.build`.
     mesh, axis, pack_keys, counters:
                     BSP-backend fields: the `repro_torch.launch.mesh`
                     mesh and its axis name, SM1/SM2 key packing, and a
@@ -80,7 +78,6 @@ class SAOptions:
     schedule: Union[str, Callable[[int, int, int], int]] = "accelerated"
     base_threshold: int | None = None
     sort_impl: str = AUTO
-    cache: bool = True
     mesh: Any = None
     axis: str = "bsp"
     pack_keys: bool = True
@@ -127,7 +124,7 @@ class SAOptions:
         Covers the fields that *describe* the build (backend spelling, v0,
         schedule, base_threshold, sort_impl, pack_keys, sample_rate) and
         excludes runtime objects (mesh, counters/stats sinks),
-        execution-only knobs (cache, validate) and serving-layer
+        execution-only knobs (validate) and serving-layer
         segmentation knobs (segment_docs, compact_fanin). Callable
         schedules fingerprint by name. Backend and sort_impl are spelled
         in the JAX package's names (`REFERENCE_NAMES`), so a plan and its

@@ -18,9 +18,8 @@
   and qps); `submit` starts an `SAServer` for open-loop traffic.
 
 `query_cache_stats()` counts the shapes the dense and sparse searches
-have run at, hits and misses, the way `builder_cache_stats()` counts
-builds. There is no compile behind a shape here, unlike the JAX
-package's jit cache: a shape is the (B_pad, L_pad, dtype) of the search's
+have run at, hits and misses. There is no compile behind a shape here,
+unlike the JAX package's jit cache: a shape is the (B_pad, L_pad, dtype) of the search's
 windows, whatever the index, and a miss is the first batch at a shape,
 the one that fills the caching allocator's pools. The JAX package's
 `trace_events` (a count of jax traces) has no counterpart.

@@ -13,8 +13,7 @@ once, so backends only implement the algorithm.
             (`repro_torch.core.seq_ref.suffix_array_dcv`), on the host.
 ``torch``   vectorised single-device DC-v
             (`repro_torch.core.dcv_torch.suffix_array_torch`) on the
-            text's device — the default. Honours ``options.sort_impl`` and
-            ``options.cache`` (bucketed shape padding).
+            text's device — the default. Honours ``options.sort_impl``.
 ``bsp``     Algorithm 3 (`repro_torch.bsp.suffix_array.suffix_array_bsp`)
             on ``options.mesh``, a single-controller mesh of p ranks
             (`repro_torch.launch.mesh`); without one, a mesh of one rank
@@ -81,7 +80,7 @@ def _torch_backend(x, options: SAOptions):
     return suffix_array_torch(
         x, v=options.v0, schedule=options.schedule_fn,
         base_threshold=options.base_threshold, sort_impl=options.sort_impl,
-        bucket=options.cache, device=x.device)
+        device=x.device)
 
 
 def _bsp_backend(x, options: SAOptions):

@@ -20,8 +20,9 @@ A segmented index has no global encoded text, so `locate_batch` returns
 **(doc, offset)** rows (int64[k, 2], sorted lexicographically), the
 representation of `SuffixArrayIndex.locate_docs_batch` for a monolithic
 index over the same documents. Every segment build goes through
-`_new_segment`, so `builder_cache_stats()` counts segment builds exactly
-(dense plans; the sparse build bypasses the builder cache).
+`_new_segment`, so the `repro_torch.trace` counter ``repro_torch.builds``
+counts segment builds exactly (dense plans; the sparse build does not go
+through `build_suffix_array`).
 
 Persistence lives in `repro_torch.api.store.SegmentedIndexStore`.
 """
@@ -164,8 +165,9 @@ class SegmentedIndex:
 
     def _new_segment(self, payloads, doc_ids) -> Segment:
         """Build ONE segment over `payloads` — this is the only place
-        segment construction happens, so builder-cache traffic counts
-        segment builds exactly (the ingest-amortization metric). The
+        segment construction happens, so the ``repro_torch.builds``
+        counter counts segment builds exactly (the ingest-amortization
+        metric). The
         facade dispatch in `SuffixArrayIndex.from_docs` makes segments
         sparse automatically when `options.sample_rate > 1`."""
         index = SuffixArrayIndex.from_docs(payloads, self.options,
@@ -362,8 +364,8 @@ class SegmentedIndex:
     def add_docs(self, docs, *, compact: bool = True) -> list[int]:
         """Ingest `docs` as ONE new segment; returns their global doc ids.
 
-        Exactly one segment build per call (asserted via
-        `repro_torch.api.build.builder_cache_stats` traffic); with
+        Exactly one segment build per call (asserted via the
+        ``repro_torch.builds`` counter); with
         ``compact=True`` (default)
         size-tiered compaction then runs and may additionally merge —
         amortised, that keeps total builder traffic

@@ -262,7 +262,7 @@ def load_index(path: str, *, options: SAOptions | None = None,
 
 class IndexStore:
     """Named persistent indexes under one root directory, with traffic
-    stats — the serving-side analogue of the builder cache.
+    stats (hits, misses, stale rebuilds).
 
     >>> store = IndexStore(root, device="cpu")            # doctest: +SKIP
     >>> index, status = store.get_or_build(
@@ -336,8 +336,8 @@ class IndexStore:
         """Restore `name` if fresh, else build, persist, and return.
 
         Returns ``(index, status)`` with status in {"hit", "miss",
-        "stale"}. On a hit the builder never runs —
-        `repro_torch.api.build.builder_cache_stats` stays at zero builds.
+        "stale"}. On a hit the builder never runs — the
+        ``repro_torch.builds`` counter does not move.
 
         Stats are updated atomically with the returned index (under a
         lock, only once the non-hit path has actually built AND

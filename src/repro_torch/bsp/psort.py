@@ -38,9 +38,8 @@ from __future__ import annotations
 import torch
 
 from ..core.bitonic import bitonic_sort, lex_lt_int, next_pow2
-from ..core.dcv_torch import (_compact, _lemma1_order, _order_from_words,
-                              _run_state)
-from ..kernels.ops import radix_argsort
+from ..core.words import (argsort_words, compact, lemma1_order, pack_words,
+                          run_state)
 from ..launch.mesh import all_gather, mesh_num_devices
 from .exchange import exchange
 from .primitives import INT32_MAX, lex_lt_rows, searchsorted_rows
@@ -146,33 +145,22 @@ def argsort_rows(rows: torch.Tensor, cols, key_sort: str = "radix"):
     Each column is offset by its minimum (so signed and INT32_MAX columns
     become non-negative words), constant columns are skipped, and the rest
     are packed most-significant first into as few int64 words of ≤ 63 bits
-    as their ranges allow (one host read for the ranges). ``"radix"`` sorts
-    the words with `radix_argsort` (the hand-written kernels on a CUDA
-    tensor), ``"torch"`` with stable `torch.sort` passes."""
+    as their ranges allow (`core.words.pack_words`; one host read for the
+    ranges), then argsorted by `core.words.argsort_words`: ``"radix"``
+    with `radix_argsort` (the hand-written kernels on a CUDA tensor),
+    ``"torch"`` with stable `torch.sort` passes."""
     m = rows.shape[0]
     if m <= 1:
         return torch.arange(m, device=rows.device)
     sel = rows[:, list(cols)].long()
     lo, hi = torch.aminmax(sel, dim=0)
-    words, bits = [], []
-    for c, span in enumerate((hi - lo).tolist()):
-        width = int(span).bit_length()
-        if not width:
-            continue                          # a constant column decides nothing
-        col = sel[:, c] - lo[c]
-        if bits and bits[-1] + width <= 63:
-            words[-1] = (words[-1] << width) | col
-            bits[-1] += width
-        else:
-            words.append(col)
-            bits.append(width)
-    if not words:
+    widths = [int(span).bit_length() for span in (hi - lo).tolist()]
+    keep = [c for c, w in enumerate(widths) if w]   # constants decide nothing
+    if not keep:
         return torch.arange(m, device=rows.device)
-    if key_sort == "radix":
-        return radix_argsort(words, bits)
-    if key_sort == "torch":
-        return _order_from_words(words)
-    raise ValueError(f"unknown key sort {key_sort!r}")
+    words, bits = pack_words((sel[:, c] - lo[c] for c in keep),
+                             [widths[c] for c in keep])
+    return argsort_words(words, bits, key_sort)
 
 
 def local_sort_lex(rows: torch.Tensor, key_sort: str = "radix"):
@@ -232,7 +220,7 @@ def make_local_sort_keyed(nk: int, v: int, dsize: int, lam_i1, lam_i2,
     their whole v-character window, the only pairs Lemma 1 is needed for)
     by (run, Λ-rank, slot) — slot order within a run is gidx order — and
     runs only when phase 1 left such a run, as the reference's `lax.cond`
-    does. It orders just the tied rows (`core.dcv_torch._lemma1_order`: a
+    does. It orders just the tied rows (`core.words.lemma1_order`: a
     keyed class sort and one merge launch, whatever the runs' widths); the
     other rows are alone in their run and keep their slot, so the result
     is the reference's whole-shard pass. Pad rows never trigger it: their
@@ -247,16 +235,16 @@ def make_local_sort_keyed(nk: int, v: int, dsize: int, lam_i1, lam_i2,
         head = rows[:, :1 + nk]
         is_start = torch.ones(m, dtype=torch.bool, device=rows.device)
         is_start[1:] = (head[1:] != head[:-1]).any(dim=1)
-        run_start, sizes = _run_state(is_start)
+        run_start, sizes = run_state(is_start)
         tied = (sizes > 1) & (rows[:, 0] == 0)
         n_tied = int(tied.sum())
         if not n_tied:
             return rows
-        sl = _compact(tied, n_tied)
+        sl = compact(tied, n_tied)
         order = torch.arange(m, device=rows.device)
-        order[sl] = _lemma1_order(sl, sl - run_start[sl], sizes[sl],
-                                  rows[sl, cr:ck].long(), rows[sl, ck].long(),
-                                  lam_i1, lam_i2, RANK_BOUND)
+        order[sl] = lemma1_order(sl, sl - run_start[sl], sizes[sl],
+                                 rows[sl, cr:ck].long(), rows[sl, ck].long(),
+                                 lam_i1, lam_i2, RANK_BOUND)
         return rows[order]
 
     return local_sort

@@ -44,7 +44,7 @@ import math
 import numpy as np
 import torch
 
-from ..core.dcv_torch import _cover_constants, suffix_array_torch
+from ..core.dcv_torch import cover_constants, suffix_array_torch
 from ..core.difference_cover import cover_tables
 from ..core.seq_ref import accelerated_next_v
 from ..launch.mesh import all_gather, mesh_num_devices, ppermute
@@ -95,7 +95,7 @@ def _scatter_drop(size: int, index: torch.Tensor, values: torch.Tensor,
 def _sm1_body(me: int, xloc, *, p, v, n_loc, m_loc, sigma=None,
               key_sort="radix"):
     dev = xloc.device
-    D = _cover_constants(v, dev)[0]
+    D = cover_constants(v, dev)[0]
 
     # --- char halo: first v chars of next rank (last rank: sentinels) ---
     halo = yield ppermute(xloc[:v], [(s, s - 1) for s in range(1, p)])
@@ -156,7 +156,7 @@ def _sm1_body(me: int, xloc, *, p, v, n_loc, m_loc, sigma=None,
 def _sm2_body(me: int, xloc, sa_rank_loc, *, p, v, n_loc, m_loc,
               impl="bitonic", sigma=None, key_sort="radix"):
     dev = xloc.device
-    D, _, shifts, lam_i1, lam_i2 = _cover_constants(v, dev)
+    D, _, shifts, lam_i1, lam_i2 = cover_constants(v, dev)
     dsize = len(D)
     per_block = (n_loc // v) * p                            # block length in X'
 

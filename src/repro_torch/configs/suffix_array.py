@@ -2,7 +2,8 @@
 (corpus size, backend, v schedule, serving knobs).
 
 The port of `repro.configs.suffix_array`, with its construction, serving
-and data-plane fields and their defaults. `SAConfig` is a thin, frozen
+and data-plane fields and their defaults, less `cache` (see
+`repro_torch.api.options`). `SAConfig` is a thin, frozen
 launch-config wrapper; the executable plan is the
 `repro_torch.api.SAOptions` it produces via `to_options()`, and the data
 plane's `repro_torch.data.pipeline.PipelineConfig` comes from
@@ -22,7 +23,6 @@ class SAConfig:
     base_threshold: int = 4096
     sort_impl: str = "auto"     # window sort of the torch backend
                                 # (see SAOptions.sort_impl)
-    cache: bool = True          # builder cache + bucketed padding
     pack_keys: bool = True
     sample_rate: int = 1        # >1: sparse sampled-position indexing
                                 # (repro_torch.sparse) — index memory n/s,
@@ -83,7 +83,7 @@ class SAConfig:
         return SAOptions(backend=self.backend, v0=self.v0,
                          schedule=self.schedule,
                          base_threshold=self.base_threshold,
-                         sort_impl=self.sort_impl, cache=self.cache,
+                         sort_impl=self.sort_impl,
                          mesh=mesh, axis=self.axis,
                          pack_keys=self.pack_keys,
                          counters=counters, stats=stats,

@@ -39,8 +39,7 @@ import numpy as np
 import torch
 
 from ..kernels.ops import bitonic_sort as kernel_bitonic_sort
-from ..kernels.ops import (dense_rank_gathered, dense_rank_sorted,
-                           lemma1_merge, radix_argsort)
+from ..kernels.ops import dense_rank_gathered, dense_rank_sorted
 from ..kernels.ref import rows_neq
 from ..trace import span
 from .bitonic import (bitonic_sort, lex_lt_int, next_pow2,
@@ -48,41 +47,17 @@ from .bitonic import (bitonic_sort, lex_lt_int, next_pow2,
 from .compat import resolve_device, resolve_sort_impl
 from .difference_cover import cover_tables
 from .seq_ref import accelerated_next_v
+from .words import argsort_words, compact, lemma1_order, pack_words, run_state
 
 INT32_MAX = 2 ** 31 - 1
 I64 = torch.int64
 
 
 # --------------------------------------------------------------------------
-# shape bucketing — the builder cache's padding rule
-# --------------------------------------------------------------------------
-#: lengths below this are never bucketed.
-_BUCKET_MIN = 512
-
-
-def pad_bucket(n: int) -> int:
-    """Smallest grid length ≥ n, grid = {2^k · q/4 : q ∈ {4,5,6,7}}.
-
-    Quantising every level's length to this geometric grid (ratio ≤ 1.25,
-    so ≤ 25% padding) collapses the open-ended family of input lengths onto
-    O(log n) distinct shapes, which the builder cache in
-    `repro_torch.api.build` keys on.
-    """
-    if n <= _BUCKET_MIN:
-        return n
-    base = 1 << (n - 1).bit_length() - 1          # largest power of two < n
-    for q in (4, 5, 6, 7):
-        cand = base * q // 4
-        if cand >= n:
-            return cand
-    return base * 2
-
-
-# --------------------------------------------------------------------------
 # per-level constants
 # --------------------------------------------------------------------------
 @functools.lru_cache(maxsize=256)
-def _cover_constants(v: int, device: torch.device):
+def cover_constants(v: int, device: torch.device):
     """Device copies of the (small) cover tables of modulus v:
     (D int64[|D|], in_D bool[v], shifts int64[v, |D|], lam1, lam2
     int64[v, v]). Cached so a level does not copy them again."""
@@ -94,12 +69,12 @@ def _cover_constants(v: int, device: torch.device):
                            tabs.lam_idx2.astype(np.int64)))
 
 
-def _level_constants(n_v: int, v: int, device: torch.device):
+def level_constants(n_v: int, v: int, device: torch.device):
     """Constants of one (n_v, v) level on `device`: (sample_pos int64[m] in
     block-major order, inv_sample int64[n_v] (-1 off the sample), in_D,
     shifts, lam1, lam2). The position maps are computed on the device, so
     no level copies an n_v-sized table from the host."""
-    D, in_D, shifts, lam1, lam2 = _cover_constants(v, device)
+    D, in_D, shifts, lam1, lam2 = cover_constants(v, device)
     per_block = n_v // v
     sample_pos = (D[:, None] + torch.arange(per_block, device=device)[None, :]
                   * v).reshape(-1)
@@ -111,23 +86,13 @@ def _level_constants(n_v: int, v: int, device: torch.device):
 # --------------------------------------------------------------------------
 # helpers
 # --------------------------------------------------------------------------
-def _compact(mask: torch.Tensor, count: int) -> torch.Tensor:
-    """Ascending indices of the True entries of `mask`, whose number the
-    caller knows (`count`) — `torch.nonzero` without its host read."""
-    dest = torch.where(mask, torch.cumsum(mask, 0) - 1, count)
-    out = torch.empty(count + 1, dtype=I64, device=mask.device)
-    out.scatter_(0, dest, torch.arange(len(mask), device=mask.device))
-    return out[:count]
-
-
-def _padded_text(x: torch.Tensor, n_v: int, v: int) -> torch.Tensor:
+def padded_text(x: torch.Tensor, n_v: int, v: int) -> torch.Tensor:
     """x padded to n_v + 2v with *distinct, decreasing* negative sentinels.
 
-    Distinctness matters: equal sentinels would form giant tie groups and
-    defeat the all-distinct recursion short-circuit once bucketing makes the
-    pad region large. Correctness needs only "below the alphabet": the
-    first differing window column between two real suffixes is never
-    pad-vs-pad (pad values are position-unique)."""
+    Distinct sentinels keep the pad suffixes out of each other's tie
+    groups. Correctness needs only "below the alphabet": the first
+    differing window column between two real suffixes is never pad-vs-pad
+    (pad values are position-unique)."""
     n = len(x)
     xp = torch.empty(n_v + 2 * v, dtype=I64, device=x.device)
     xp[:n] = x
@@ -135,7 +100,7 @@ def _padded_text(x: torch.Tensor, n_v: int, v: int) -> torch.Tensor:
     return xp
 
 
-def _window_rows(xp: torch.Tensor, n_v: int, v: int) -> torch.Tensor:
+def window_rows(xp: torch.Tensor, n_v: int, v: int) -> torch.Tensor:
     """int32[next_pow2(n_v), v + 1]: the v-character window of every
     position plus an index column (a total order), then INT32_MAX pad rows,
     which sort after every real row."""
@@ -148,46 +113,17 @@ def _window_rows(xp: torch.Tensor, n_v: int, v: int) -> torch.Tensor:
     return rows
 
 
-def _word_bits(v: int, lo: int, hi: int) -> list[int]:
-    """Bit width of each word `_window_words` packs: `63 // bits` columns
-    of `bits` bits a word, the last word holding what is left."""
+def window_words(xp: torch.Tensor, n_v: int, v: int, lo: int,
+                 hi: int) -> tuple[list[torch.Tensor], list[int]]:
+    """The v-character windows at positions [0, n_v), values in [lo, hi],
+    shifted to non-negative and packed by `core.words.pack_words` (v
+    columns of one width): (words, their bit widths)."""
     bits = max(1, int(hi - lo).bit_length())
-    per_word = max(1, 63 // bits)
-    return [bits * (min(start + per_word, v) - start)
-            for start in range(0, v, per_word)]
+    return pack_words((xp[c:c + n_v] - lo for c in range(v)), [bits] * v)
 
 
-def _window_words(xp: torch.Tensor, n_v: int, v: int, lo: int,
-                  hi: int) -> list[torch.Tensor]:
-    """Pack the v-character windows at positions [0, n_v) into int64 words.
-
-    Values (in [lo, hi]) are shifted to non-negative and packed
-    most-significant-column-first, `63 // bits` columns per word (torch
-    sorts signed int64 only, so the sign bit stays clear): comparing the
-    word list lexicographically equals comparing windows. Word k is below
-    2**`_word_bits(v, lo, hi)[k]`."""
-    bits = max(1, int(hi - lo).bit_length())
-    per_word = max(1, 63 // bits)
-    words = []
-    for start in range(0, v, per_word):
-        w = torch.zeros(n_v, dtype=I64, device=xp.device)
-        for c in range(start, min(start + per_word, v)):
-            w = (w << bits) | (xp[c:c + n_v] - lo)
-        words.append(w)
-    return words
-
-
-def _order_from_words(words: list[torch.Tensor]) -> torch.Tensor:
-    """Lexicographic argsort of packed word lists: stable LSD passes, so
-    equal windows stay in position order."""
-    order = torch.arange(len(words[0]), device=words[0].device)
-    for w in reversed(words):
-        order = order[torch.sort(w[order], stable=True).indices]
-    return order
-
-
-def _window_order(xp: torch.Tensor, n_v: int, v: int, lo: int, hi: int,
-                  impl: str):
+def window_order(xp: torch.Tensor, n_v: int, v: int, lo: int, hi: int,
+                 impl: str):
     """Sort all n_v window rows with the chosen impl.
 
     Returns (order int64[n_v], is_start bool[n_v], sorted_rows): `order`
@@ -196,18 +132,17 @@ def _window_order(xp: torch.Tensor, n_v: int, v: int, lo: int, hi: int,
     matrix in sorted order (int32[n_v, v]) for "kernel" and the packed
     words (position-indexed) for "torch" and "radix".
     """
-    if impl == "radix":
-        words = _window_words(xp, n_v, v, lo, hi)
-        order = radix_argsort(words, _word_bits(v, lo, hi))
-        return order, dense_rank_gathered(words, order)[1], words
-    is_start = torch.ones(n_v, dtype=torch.bool, device=xp.device)
     if impl == "kernel":
-        out = kernel_bitonic_sort(_window_rows(xp, n_v, v))[:n_v]
+        out = kernel_bitonic_sort(window_rows(xp, n_v, v))[:n_v]
         srt = out[:, :v]
+        is_start = torch.ones(n_v, dtype=torch.bool, device=xp.device)
         is_start[1:] = (srt[1:] != srt[:-1]).any(dim=1)
         return out[:, v].long(), is_start, srt
-    words = _window_words(xp, n_v, v, lo, hi)
-    order = _order_from_words(words)
+    words, bits = window_words(xp, n_v, v, lo, hi)
+    order = argsort_words(words, bits, impl)
+    if impl == "radix":
+        return order, dense_rank_gathered(words, order)[1], words
+    is_start = torch.ones(n_v, dtype=torch.bool, device=xp.device)
     is_start[1:] = rows_neq(words, order[1:], order[:-1])
     return order, is_start, words
 
@@ -248,21 +183,6 @@ def suffix_array_doubling_torch(x: torch.Tensor) -> torch.Tensor:
 _TIEBREAK_COMPACT_MAX = 1024
 
 
-def _run_state(is_start: torch.Tensor):
-    """Per slot: the slot where its run starts, and the run's size.
-    `is_start[0]` must be True."""
-    n = len(is_start)
-    run_id = torch.cumsum(is_start, 0) - 1
-    # start_of[r] = first slot of run r; the entry after the last run keeps
-    # n (the non-start slots all scatter into start_of[n], read only when
-    # every slot starts a run, and then nothing scatters there).
-    start_of = torch.full((n + 1,), n, dtype=I64, device=is_start.device)
-    start_of.scatter_(0, torch.where(is_start, run_id, n),
-                      torch.arange(n, device=is_start.device))
-    run_start = start_of[run_id]
-    return run_start, start_of[run_id + 1] - run_start
-
-
 def _resolve_ties(order, is_start, rank, shifts, lam1, lam2, v: int,
                   n_v: int) -> torch.Tensor:
     """Steps 2–4 second half: refine the window-sorted candidate order.
@@ -272,10 +192,10 @@ def _resolve_ties(order, is_start, rank, shifts, lam1, lam2, v: int,
     stride-doubling refinement rounds shrink it using the group ranks
     themselves as keys (Manber–Myers, seeded at resolution v); the residue
     is resolved by the Lemma-1 comparator on a compacted payload
-    (`_lemma1_order`). `order` and `is_start` are updated in place; returns
+    (`lemma1_order`). `order` and `is_start` are updated in place; returns
     `order`.
     """
-    run_start, sizes = _run_state(is_start)
+    run_start, sizes = run_state(is_start)
     r_pos = torch.empty(n_v, dtype=I64, device=order.device)
     r_pos[order] = run_start
     unresolved = sizes > 1
@@ -289,7 +209,7 @@ def _resolve_ties(order, is_start, rank, shifts, lam1, lam2, v: int,
     cap = max(_TIEBREAK_COMPACT_MAX, n_v >> 3)
     while U > cap and stride < n_v:
         with span("repro_torch.dcv.refine"):
-            sl = _compact(unresolved, U)
+            sl = compact(unresolved, U)
             p = order[sl]
             nxt = p + stride
             key = torch.where(nxt < n_v, r_pos[nxt.clamp(max=n_v - 1)], -1)
@@ -298,7 +218,7 @@ def _resolve_ties(order, is_start, rank, shifts, lam1, lam2, v: int,
             order[sl] = p[local]
             # run starts re-emerge via the high bits; interiors refine.
             is_start[sl[1:]] = pk[1:] != pk[:-1]
-            run_start, sizes = _run_state(is_start)
+            run_start, sizes = run_state(is_start)
             r_pos[order] = run_start
             unresolved = sizes > 1
             U = int(unresolved.sum())
@@ -308,40 +228,13 @@ def _resolve_ties(order, is_start, rank, shifts, lam1, lam2, v: int,
 
     # Lemma-1 comparator on the compacted ties only.
     with span("repro_torch.dcv.lemma1"):
-        sl = _compact(unresolved, U)
+        sl = compact(unresolved, U)
         p = order[sl]
         klass = p % v
-        order[sl] = _lemma1_order(p, sl - run_start[sl], sizes[sl],
-                                  rank[p[:, None] + shifts[klass]], klass,
-                                  lam1, lam2, len(rank))
+        order[sl] = lemma1_order(p, sl - run_start[sl], sizes[sl],
+                                 rank[p[:, None] + shifts[klass]], klass,
+                                 lam1, lam2, len(rank))
     return order
-
-
-def _lemma1_order(p, lane, width, rvals, klass, lam1, lam2,
-                  rank_bound: int) -> torch.Tensor:
-    """Order the members of each tie group by the Lemma-1 comparator.
-
-    `p` [U] lists the tied rows in slot order, each group contiguous and
-    ascending in `p`; `lane` is a row's offset inside its group, `width`
-    the group's size, `rvals` [U, |D|] and `klass` [U] the rows' sample
-    ranks (each in [-1, rank_bound)) and classes. Ties of the comparator
-    fall to `p`.
-
-    Rows of one class compare by one column, their key
-    `rvals[i, lam1[k, k]]`. So one stable radix sort by (group, class,
-    key) orders every class segment, and one `lemma1_merge` launch places
-    each row among its group's other classes by binary search. One route
-    for every group width; nothing is read back to the host. Returns p
-    reordered."""
-    n = len(p)
-    key = rvals.gather(1, lam1[klass, klass][:, None])[:, 0] + 1
-    key_bits = int(rank_bound).bit_length()
-    start = torch.arange(n, device=p.device) - lane
-    perm = radix_argsort([start, (klass << key_bits) | key],
-                         [max(1, (n - 1).bit_length()),
-                          (lam1.shape[0] - 1).bit_length() + key_bits])
-    return lemma1_merge(p[perm], klass[perm], rvals[perm], lane, width, lam1,
-                        lam2)
 
 
 # --------------------------------------------------------------------------
@@ -417,7 +310,6 @@ def suffix_array_torch(
     schedule=accelerated_next_v,
     base_threshold: int | None = None,
     sort_impl: str = "auto",
-    bucket: bool = False,
     device="cuda",
 ) -> torch.Tensor:
     """Suffix array of x (ints ≥ 0, < 2³¹) — vectorised PyTorch DC-v.
@@ -431,7 +323,6 @@ def suffix_array_torch(
     base_threshold : recursion cutoff; below it a prefix-doubling sort runs
         directly. ``None`` means 256.
     sort_impl : one of `repro_torch.core.compat.SORT_IMPLS`.
-    bucket : pad every level's length up to the `pad_bucket` grid.
     device : where the build runs; ``"cuda"`` unless the caller asks for
         ``"cpu"``.
 
@@ -455,12 +346,11 @@ def suffix_array_torch(
 
     def level(x: torch.Tensor, v: int, hi: int) -> torch.Tensor:
         n = len(x)
-        n_b = pad_bucket(n) if bucket else n
-        v = int(min(max(v, 3), n_b))
-        n_v = v * -(-n_b // v)
-        xp = _padded_text(x, n_v, v)
+        v = int(min(max(v, 3), n))
+        n_v = v * -(-n // v)
+        xp = padded_text(x, n_v, v)
         (sample_pos, inv_sample, in_D, shifts,
-         lam1, lam2) = _level_constants(n_v, v, dev)
+         lam1, lam2) = level_constants(n_v, v, dev)
         m = len(sample_pos)
         if impl == "bitonic":
             xs, n_distinct, sa_rank = _encode_sample(xp, sample_pos, v)
@@ -475,12 +365,12 @@ def suffix_array_torch(
 
         # --- ONE window sort feeds Step 1 AND Steps 2–4 ---
         with span("repro_torch.dcv.window_order"):
-            order, is_start, rep = _window_order(xp, n_v, v, lo, hi, impl)
+            order, is_start, rep = window_order(xp, n_v, v, lo, hi, impl)
 
         # Step 1: sample ranks = the window order filtered to sample
         # positions (a stable subsequence of a sorted sequence is sorted).
         with span("repro_torch.dcv.sample_rank"):
-            s_slots = _compact(in_D[order % v], m)
+            s_slots = compact(in_D[order % v], m)
             sp = order[s_slots]                   # sample pos, window-sorted
             if impl == "kernel":
                 ranks_sorted, n_distinct = dense_rank_sorted(rep[s_slots])

@@ -38,11 +38,11 @@ from dataclasses import dataclass
 
 import numpy as np
 
-from ..api import (SAOptions, SegmentedIndex, SuffixArrayIndex,
-                   builder_cache_stats)
+from ..api import SAOptions, SegmentedIndex, SuffixArrayIndex
 from ..core.compat import resolve_device
 from ..text.dedup import (DEDUP_MIN_LEN, duplicate_gram_flags,
                           gram_drop_mask)
+from ..trace import counters
 
 GATE_POLICIES = ("reject", "mask")
 
@@ -179,8 +179,7 @@ class PlaneReport:
 
 
 def _builds() -> int:
-    s = builder_cache_stats()
-    return s["hits"] + s["misses"]
+    return counters().get("repro_torch.builds", 0)
 
 
 def _doc_grams(doc: np.ndarray, g: int) -> np.ndarray:

@@ -25,7 +25,7 @@
   Lemma-1 class sort);
 * `lemma1_merge` — the tied rows of a level, class-sorted, placed in
   Lemma-1 comparator order in one pass (`lemma1_merge.cu`; every keyed
-  build's tie resolution, `core.dcv_torch._lemma1_order`);
+  build's tie resolution, `core.words.lemma1_order`);
 * `encode_place` — the sentinel-separator text of a corpus made on the
   device from its documents' tokens back to back (`encode_place.cu`;
   `SuffixArrayIndex.from_docs` and every caller of `api.index.stage_docs`).
@@ -124,15 +124,13 @@ def seg_boundary(rows: torch.Tensor, num_keys: int | None = None,
     return ref.seg_boundary_ref(rows, num_keys, block)
 
 
-def dense_rank_sorted(rows: torch.Tensor, num_keys: int | None = None,
-                      block: int = 512):
+def dense_rank_sorted(rows: torch.Tensor, num_keys: int | None = None):
     """Dense ranks of lexicographically sorted rows [N, W], N >= 1.
 
     Rows must already be sorted by their first `num_keys` columns (default:
     all). Equal rows share a rank; ranks are dense (0 .. num_distinct - 1).
     On a CUDA tensor one launch of `dense_rank.cu` computes them, carrying
-    the count across tiles itself; `block`, the reference's Pallas block,
-    stays in the signature and no longer changes anything.
+    the count across tiles itself.
 
     Returns (ranks int32[N], num_distinct int32 0-d tensor)."""
     num_keys = num_keys or rows.shape[1]

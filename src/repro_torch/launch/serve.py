@@ -44,6 +44,7 @@ import torch
 from ..configs import get_config
 from ..core.compat import resolve_device
 from ..models.lm import decode_step, encode, init_decode_states, lm_init
+from ..trace import counters
 
 
 @torch.no_grad()
@@ -130,9 +131,7 @@ def _sync(device: torch.device) -> None:
 
 
 def _builds() -> int:
-    from ..api import builder_cache_stats
-    s = builder_cache_stats()
-    return s["hits"] + s["misses"]
+    return counters().get("repro_torch.builds", 0)
 
 
 def serve_sa_queries(cfg, *, n_chars: int, n_docs: int, n_queries: int,
@@ -170,8 +169,7 @@ def serve_sa_queries(cfg, *, n_chars: int, n_docs: int, n_queries: int,
     planted pattern must hit; a mismatch raises `RuntimeError`.
     """
     from ..api import (IndexStore, SegmentedIndex, SegmentedIndexStore,
-                       SuffixArrayIndex, builder_cache_stats,
-                       corpus_fingerprint, encode_docs)
+                       SuffixArrayIndex, corpus_fingerprint, encode_docs)
     from ..bsp.counters import BSPCounters
     from ..serve import SAServer, make_arrivals, run_open_loop, summarize
     from .mesh import make_sa_mesh, visible_devices
@@ -235,7 +233,7 @@ def serve_sa_queries(cfg, *, n_chars: int, n_docs: int, n_queries: int,
                 if n_segments > 0 else "")
     print(f"{verb} {index.n} chars / {index.n_docs} docs in {build_s:.3f}s "
           f"(backend={opts.resolve_backend()}, device={dev}{seg_note}, "
-          f"builder_cache={builder_cache_stats()})")
+          f"builds={_builds()})")
 
     ingested = None
     if n_ingest:

@@ -7,10 +7,9 @@ restricted to sampled positions.
 
 1. **Head sort.** The s-char windows at multiples of s do not overlap, so
    the sampled text is the padded text viewed as [ns, s]. Columns are
-   packed most-significant-first into int64 words of at most 63 bits (the
-   rule of `repro_torch.core.dcv_torch._window_words`) and ordered by
-   `radix_argsort`, the LSD radix sort on the histogram and scatter
-   kernels.
+   packed most-significant-first into int64 words of at most 63 bits
+   (`repro_torch.core.words.pack_words`) and ordered by `radix_argsort`,
+   the LSD radix sort on the histogram and scatter kernels.
 2. **Stride doubling.** Sampled position ``i·s + h·s`` is the sampled
    index ``i + h``, so ties refine like prefix doubling in sampled units:
    round h re-sorts the slots of every tie run by (run id, rank of the
@@ -35,7 +34,7 @@ import numpy as np
 import torch
 
 from ..core.compat import resolve_device
-from ..core.dcv_torch import _compact, _run_state
+from ..core.words import compact, pack_words, run_state
 from ..kernels.ops import dense_rank_gathered, radix_argsort
 from ..trace import count, span
 
@@ -54,26 +53,16 @@ def _sampled_head_words(text: torch.Tensor, ns: int,
     Window i covers text[i*s : (i+1)*s]; the text is padded to ns*s with
     −1 (below every real character, so a window that runs past the end
     compares smaller at its first padded column). Values are shifted to
-    non-negative and packed most-significant-column-first, `63 // bits`
-    columns a word, so the sign bit stays clear and comparing word lists
-    lexicographically equals comparing windows. Returns (words, the bit
-    width of each word)."""
+    non-negative and packed by `core.words.pack_words`, so comparing word
+    lists lexicographically equals comparing windows. Returns (words, the
+    bit width of each word)."""
     lo = -1
     hi = int(text.max()) if len(text) else 0
     xp = torch.full((ns * s,), lo, dtype=I64, device=text.device)
     xp[:len(text)] = text
     cols = xp.view(ns, s) - lo
     bits = max(1, int(hi - lo).bit_length())
-    per_word = max(1, 63 // bits)
-    words, widths = [], []
-    for start in range(0, s, per_word):
-        stop = min(start + per_word, s)
-        w = torch.zeros(ns, dtype=I64, device=text.device)
-        for c in range(start, stop):
-            w = (w << bits) | cols[:, c]
-        words.append(w)
-        widths.append(bits * (stop - start))
-    return words, widths
+    return pack_words((cols[:, c] for c in range(s)), [bits] * s)
 
 
 def build_sparse_suffix_array(text, sample_rate: int,
@@ -121,7 +110,7 @@ def _construct(text, s: int, dev: torch.device) -> torch.Tensor:
     kb = ns.bit_length()
     h = 1
     while h < ns:
-        _, sizes = _run_state(is_start)
+        _, sizes = run_state(is_start)
         tied = sizes > 1
         u = int(tied.sum())
         if u == 0:
@@ -129,7 +118,7 @@ def _construct(text, s: int, dev: torch.device) -> torch.Tensor:
         count("repro_torch.sparse.rounds")
         count("repro_torch.sparse.tied_rows", u)
         with span("repro_torch.sparse.double"):
-            sl = _compact(tied, u)             # slots inside tie runs
+            sl = compact(tied, u)             # slots inside tie runs
             run_id = torch.cumsum(is_start, 0) - 1
             key2 = torch.full((ns,), -1, dtype=I64, device=dev)
             key2[:ns - h] = rank[h:]

@@ -272,8 +272,7 @@ def test_legacy_bitonic_suffix_array_matches_jax(family, n, bucket):
     x = np.asarray(FAMILIES[family](rng, n, int(rng.integers(2, 64))),
                    np.int64)
     want = dcv_jax.suffix_array_jax(x, sort_impl="bitonic", bucket=bucket)
-    got = suffix_array_torch(x, sort_impl="bitonic", bucket=bucket,
-                             device="cpu")
+    got = suffix_array_torch(x, sort_impl="bitonic", device="cpu")
     _eq(got, want)
     _eq(build_suffix_array(x, SAOptions(sort_impl="bitonic"), device="cpu"),
         want)

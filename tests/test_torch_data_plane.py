@@ -27,14 +27,14 @@ import repro.api as japi
 import repro.data.pipeline as jpipe
 import repro.text.dedup as jdedup
 from repro.configs import get_config as jget_config
-from repro_torch.api import (SAOptions, SegmentedIndex, SuffixArrayIndex,
-                             builder_cache_stats)
+from repro_torch.api import SAOptions, SegmentedIndex, SuffixArrayIndex
 from repro_torch.configs import get_config
 from repro_torch.data.pipeline import (ContaminationGate, PipelineConfig,
                                        StreamingDedup, TokenPipeline,
                                        TrainingDataPlane, synthetic_corpus,
                                        synthetic_doc_shards)
 from repro_torch.text.dedup import DEDUP_MIN_LEN, dedup_docs
+from repro_torch.trace import counters
 
 CPU = "cpu"
 REPO = Path(__file__).resolve().parent.parent
@@ -45,8 +45,7 @@ SHARDINGS = (1, 4, 16)
 
 
 def _builds() -> int:
-    s = builder_cache_stats()
-    return s["hits"] + s["misses"]
+    return counters().get("repro_torch.builds", 0)
 
 
 def make_shards(n_chars=18_000, shard_docs=4, doc_len=1200, dup=0.4, seed=3):

@@ -20,13 +20,15 @@ import torch
 import repro.api as japi
 from repro.core import dcv_jax
 from repro.core.oracle import suffix_array_doubling
-from repro_torch.api import (SAOptions, build_suffix_array,
-                             builder_cache_stats, clear_builder_cache,
+from repro_torch.api import (SAOptions, SegmentedIndex, build_suffix_array,
                              registered_backends)
+from repro_torch.bsp import psort
 from repro_torch.bsp.counters import BSPCounters
 from repro_torch.core import dcv_torch
 from repro_torch.core.compat import resolve_sort_impl
 from repro_torch.core.dcv_torch import suffix_array_torch
+from repro_torch.core.words import pack_words, run_state, word_bits
+from repro_torch.trace import counters
 
 REPO = Path(__file__).resolve().parent.parent
 SEED = 20261017
@@ -52,14 +54,15 @@ def _text(family: str, n: int) -> np.ndarray:
 
 
 # ------------------------------------------------------ suffix array parity
+# 513 and 2049 lie just above points of the JAX package's bucket grid,
+# where its level padding is largest; the port builds every length as it is
 @pytest.mark.parametrize("family", sorted(FAMILIES))
-@pytest.mark.parametrize("n", [300, 2500])
+@pytest.mark.parametrize("n", [300, 513, 2049, 2500])
 @pytest.mark.parametrize("impl", ["kernel", "torch", "radix"])
-@pytest.mark.parametrize("bucket", [False, True])
-def test_suffix_array_matches_jax(family, n, impl, bucket):
+def test_suffix_array_matches_jax(family, n, impl):
     x = _text(family, n)
-    want = dcv_jax.suffix_array_jax(x, sort_impl="radix", bucket=bucket)
-    got = suffix_array_torch(x, sort_impl=impl, bucket=bucket, device="cpu")
+    want = dcv_jax.suffix_array_jax(x, sort_impl="radix", bucket=False)
+    got = suffix_array_torch(x, sort_impl=impl, device="cpu")
     assert got.dtype == torch.int32 and got.device.type == "cpu"
     np.testing.assert_array_equal(got.numpy(), want)
 
@@ -93,10 +96,10 @@ def test_window_words_keep_the_sign_bit_clear():
     x = torch.tensor([0, 2 ** 31 - 1, 5, 2 ** 31 - 2, 0, 0, 0, 0, 0],
                      dtype=torch.int64)
     lo, hi = -4, 2 ** 31 - 1
-    words = dcv_torch._window_words(x, 6, 3, lo, hi)
+    words, _ = dcv_torch.window_words(x, 6, 3, lo, hi)
     assert len(words) == 3                   # 32 bits: one column per word
     assert all(bool((w >= 0).all()) for w in words)
-    small = dcv_torch._window_words(x.clamp(max=9), 6, 3, 0, 9)
+    small, _ = dcv_torch.window_words(x.clamp(max=9), 6, 3, 0, 9)
     assert len(small) == 1                   # 4 bits: all three in one word
 
 
@@ -107,10 +110,10 @@ def test_radix_window_order_equals_torch(family, v):
     # position order, as the stable torch.sort passes keep them
     x = torch.as_tensor(_text(family, 1500))
     n_v = v * -(-len(x) // v)
-    xp = dcv_torch._padded_text(x, n_v, v)
+    xp = dcv_torch.padded_text(x, n_v, v)
     lo, hi = -(n_v + 2 * v - len(x)), int(x.max())
-    got = dcv_torch._window_order(xp, n_v, v, lo, hi, "radix")
-    want = dcv_torch._window_order(xp, n_v, v, lo, hi, "torch")
+    got = dcv_torch.window_order(xp, n_v, v, lo, hi, "radix")
+    want = dcv_torch.window_order(xp, n_v, v, lo, hi, "torch")
     for g, w in zip(got[:2], want[:2]):
         assert torch.equal(g, w)
 
@@ -120,11 +123,82 @@ def test_word_bits_match_the_packing():
                       (-7, 300, 20)):
         x = (torch.arange(4 * v, dtype=torch.int64) + lo).clamp(max=hi)
         x[v:2 * v] = hi                      # a window of maxima
-        words = dcv_torch._window_words(x, 2 * v, v, lo, hi)
-        bits = dcv_torch._word_bits(v, lo, hi)
+        words, bits = dcv_torch.window_words(x, 2 * v, v, lo, hi)
+        assert bits == word_bits([max(1, (hi - lo).bit_length())] * v)
         assert len(bits) == len(words)
         assert all(int(w.max()) < 2 ** b for w, b in zip(words, bits))
-    assert dcv_torch._word_bits(3, -12_295, 4_351) == [45]   # level 0
+    assert word_bits([21] * 3) == [63]
+    assert word_bits([22] * 3) == [44, 22]
+
+
+def _per_word_window_words(xp, n_v, v, lo, hi):
+    """The window packing as it was written before `core.words`: `63 //
+    bits` columns a word, each word built from zeros."""
+    bits = max(1, int(hi - lo).bit_length())
+    per_word = max(1, 63 // bits)
+    words, widths = [], []
+    for start in range(0, v, per_word):
+        stop = min(start + per_word, v)
+        w = torch.zeros(n_v, dtype=torch.int64)
+        for c in range(start, stop):
+            w = (w << bits) | (xp[c:c + n_v] - lo)
+        words.append(w)
+        widths.append(bits * (stop - start))
+    return words, widths
+
+
+def _per_column_row_words(sel):
+    """`bsp.psort.argsort_rows`' packing as it was written before
+    `core.words`: per-column widths, constant columns skipped."""
+    lo, hi = torch.aminmax(sel, dim=0)
+    words, bits = [], []
+    for c, span in enumerate((hi - lo).tolist()):
+        width = int(span).bit_length()
+        if not width:
+            continue
+        col = sel[:, c] - lo[c]
+        if bits and bits[-1] + width <= 63:
+            words[-1] = (words[-1] << width) | col
+            bits[-1] += width
+        else:
+            words.append(col)
+            bits.append(width)
+    return words, bits
+
+
+def test_pack_words_equals_the_per_word_rule():
+    rng = np.random.default_rng(SEED + 3)
+    for v in (3, 4, 5, 8, 14, 27):
+        for top in (1, 9, 300, 2 ** 20, 2 ** 31 - 1):
+            x = torch.from_numpy(rng.integers(0, top + 1, 40 * v))
+            x[-1] = top
+            n_v = v * -(-len(x) // v)
+            xp = dcv_torch.padded_text(x, n_v, v)
+            args = (xp, n_v, v, -(n_v + 2 * v - len(x)), top)
+            words, bits = dcv_torch.window_words(*args)
+            want, want_bits = _per_word_window_words(*args)
+            assert bits == want_bits, (v, top)
+            assert all(torch.equal(g, w) for g, w in zip(words, want))
+    # a bsp row set: valid flag, keys of mixed widths, a constant column,
+    # INT32_MAX pads, a unique index
+    m = 500
+    rows = np.stack([rng.integers(0, 2, m), rng.integers(-3, 40, m),
+                     np.full(m, 7), rng.integers(0, 2 ** 30, m),
+                     rng.integers(0, 5, m), np.arange(m)], 1)
+    rows[-20:, 1:5] = 2 ** 31 - 1
+    sel = torch.from_numpy(rows).int().long()
+    want, want_bits = _per_column_row_words(sel)
+    lo, hi = torch.aminmax(sel, dim=0)
+    keep = [c for c in range(sel.shape[1]) if int(hi[c] - lo[c])]
+    words, bits = pack_words((sel[:, c] - lo[c] for c in keep),
+                             [int(hi[c] - lo[c]).bit_length() for c in keep])
+    assert bits == want_bits == word_bits(
+        [int(hi[c] - lo[c]).bit_length() for c in keep])
+    assert all(torch.equal(g, w) for g, w in zip(words, want))
+    for impl in ("radix", "torch"):
+        np.testing.assert_array_equal(
+            psort.argsort_rows(sel.int(), range(sel.shape[1]), impl).numpy(),
+            np.lexsort(rows.T[::-1]))
 
 
 @pytest.mark.parametrize("n", [2, 3, 17, 200, 256])
@@ -147,20 +221,15 @@ def test_run_state_matches_numpy(kind):
     start_slot = np.flatnonzero(is_start)
     run_id = np.cumsum(is_start) - 1
     sizes = np.diff(start_slot, append=len(is_start))
-    run_start, run_size = dcv_torch._run_state(torch.from_numpy(is_start))
+    run_start, run_size = run_state(torch.from_numpy(is_start))
     np.testing.assert_array_equal(run_start.numpy(), start_slot[run_id])
     np.testing.assert_array_equal(run_size.numpy(), sizes[run_id])
-
-
-def test_pad_bucket_matches_jax():
-    for n in list(range(1, 3000, 7)) + [14_680_064, 14_680_065, 2 ** 24]:
-        assert dcv_torch.pad_bucket(n) == dcv_jax.pad_bucket(n), n
 
 
 @pytest.mark.parametrize("v", [3, 4, 5, 8, 14])
 def test_level_constants_match_jax(v):
     n_v = 12 * v
-    sp, inv, in_d, shifts, lam1, lam2 = dcv_torch._level_constants(
+    sp, inv, in_d, shifts, lam1, lam2 = dcv_torch.level_constants(
         n_v, v, torch.device("cpu"))
     ref = dcv_jax._level_constants(n_v, v)
     for got, want in zip((sp, inv, in_d, shifts, lam1, lam2), ref[:6]):
@@ -192,15 +261,22 @@ def test_facade_edge_inputs():
         build_suffix_array(np.zeros((2, 2), np.int64), device="cpu")
 
 
-def test_builder_cache_shares_bucketed_plans():
-    clear_builder_cache()
+def test_builds_counter_counts_backend_builds():
+    def builds():
+        return counters().get("repro_torch.builds", 0)
+
     x = _text("uniform", 1100)
+    b0 = builds()
     build_suffix_array(x, device="cpu")
     build_suffix_array(x[:1050], SAOptions(sort_impl="kernel"), device="cpu")
-    stats = builder_cache_stats()
-    assert stats == {"entries": 1, "hits": 1, "misses": 1}
     build_suffix_array(x, SAOptions(sort_impl="torch"), device="cpu")
-    assert builder_cache_stats()["entries"] == 2
+    assert builds() == b0 + 3
+    for short in ([], [7]):                  # n ≤ 1 reaches no backend
+        build_suffix_array(np.asarray(short, np.int64), device="cpu")
+    assert builds() == b0 + 3
+    docs = [x[i:i + 100] for i in range(0, 500, 100)]
+    SegmentedIndex.from_docs(docs, segment_docs=2, device="cpu")
+    assert builds() == b0 + 3 + 3            # one build a segment
 
 
 def test_options_validation_and_fingerprint():

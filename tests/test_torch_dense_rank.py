@@ -22,6 +22,7 @@ from repro.kernels import ops as jops
 from repro_torch.core import dcv_torch
 from repro_torch.core.difference_cover import difference_cover
 from repro_torch.core.seq_ref import accelerated_next_v
+from repro_torch.core.words import argsort_words, word_bits
 from repro_torch.kernels import _build, dense_rank, ops
 
 REPO = Path(__file__).resolve().parent.parent
@@ -76,16 +77,6 @@ def test_dense_rank_sorted_edge_rows_match_jax(kind):
     _assert_rows_match_jax(rows)
 
 
-def test_dense_rank_sorted_ignores_block():
-    # `block` is the reference's Pallas block; it changes nothing here
-    rows = _sorted_rows(np.random.default_rng(5), 1000, 3, hi=2)
-    base = ops.dense_rank_sorted(torch.from_numpy(rows))
-    for block in (32, 128, 1024):
-        got = ops.dense_rank_sorted(torch.from_numpy(rows), block=block)
-        for g, b in zip(got, base):
-            assert torch.equal(g, b)
-
-
 # -------------------------------------------------------- gathered rows
 def _oracle(words: list[np.ndarray], pos: np.ndarray):
     """The reference's radix path: `_rows_neq` between neighbours along
@@ -98,7 +89,7 @@ def _oracle(words: list[np.ndarray], pos: np.ndarray):
 
 
 def _window_words(family: str, n: int, v: int, top: int):
-    """`_window_words` of a FAMILIES text (alphabet below 64) lifted so its
+    """`window_words` of a FAMILIES text (alphabet below 64) lifted so its
     largest value is `top` (0: not lifted), v columns a row: `top` sets the
     bits a column takes."""
     rng = np.random.default_rng([SEED, n, v, sorted(FAMILIES).index(family)])
@@ -108,9 +99,9 @@ def _window_words(family: str, n: int, v: int, top: int):
         x += top - x.max()
     xt = torch.from_numpy(x)
     n_v = v * -(-n // v)
-    xp = dcv_torch._padded_text(xt, n_v, v)
+    xp = dcv_torch.padded_text(xt, n_v, v)
     lo, hi = -(n_v + 2 * v - n), int(x.max())
-    return dcv_torch._window_words(xp, n_v, v, lo, hi), rng
+    return dcv_torch.window_words(xp, n_v, v, lo, hi)[0], rng
 
 
 def _assert_gathered_match(words, pos):
@@ -131,7 +122,7 @@ def _assert_gathered_match(words, pos):
 def test_dense_rank_gathered_matches_jax(family, v, top, k):
     words, rng = _window_words(family, 1500, v, top)
     assert len(words) == k
-    order = dcv_torch._order_from_words(words)
+    order = argsort_words(words, None, "torch")
     # the window order's run starts, a sorted subsequence as the sample
     # ranks take, the same positions in no order, and one row
     samples = order[torch.from_numpy(np.sort(
@@ -142,17 +133,16 @@ def test_dense_rank_gathered_matches_jax(family, v, top, k):
 
 
 # ----------------------------------------------------- the gathered cap
-def _largest_words(n: int, bucket: bool) -> int:
-    """The most words `_window_words` packs at any level of a build of n
+def _largest_words(n: int) -> int:
+    """The most words `window_words` packs at any level of a build of n
     tokens under the accelerated v-schedule, with every level's alphabet at
     its largest (2^31 - 1 at the top, m - 1 below)."""
     hi, v, most = 2 ** 31 - 1, 3, 0
     while n > max(256, v, 4):
-        n_b = dcv_torch.pad_bucket(n) if bucket else n
-        v = int(min(max(v, 3), n_b))
-        n_v = v * -(-n_b // v)
-        most = max(most, len(dcv_torch._word_bits(v, -(n_v + 2 * v - n),
-                                                  hi)))
+        v = int(min(max(v, 3), n))
+        n_v = v * -(-n // v)
+        lo = -(n_v + 2 * v - n)
+        most = max(most, len(word_bits([(hi - lo).bit_length()] * v)))
         d = len(difference_cover(v))
         m = d * (n_v // v)
         n, v, hi = m, accelerated_next_v(v, d, m), m - 1
@@ -160,12 +150,11 @@ def _largest_words(n: int, bucket: bool) -> int:
 
 
 def test_gather_cap_is_the_schedules_largest_word_count():
-    cap = max(_largest_words(2 ** 31 - 1, bucket) for bucket in (False,
-                                                                 True))
+    cap = _largest_words(2 ** 31 - 1)
     assert cap == dense_rank.MAX_WORDS
     src = (_build.CSRC / "dense_rank.cu").read_text()
     assert int(re.search(r"kMaxWords = (\d+);", src).group(1)) == cap
-    assert _largest_words(14_680_065, False) < cap
+    assert _largest_words(14_680_065) < cap
 
 
 # ------------------------------------------------------ wrappers, build

@@ -12,7 +12,8 @@ import torch
 
 from repro_torch.api import SAOptions, SuffixArrayIndex
 from repro_torch.api.index import stage_docs
-from repro_torch.core.dcv_torch import _order_from_words, suffix_array_torch
+from repro_torch.core.dcv_torch import suffix_array_torch
+from repro_torch.core.words import argsort_words
 from repro_torch.kernels import bitonic_sort as bsort
 from repro_torch.kernels import dense_rank, ops, ref
 from repro_torch.sparse import build_sparse_suffix_array
@@ -163,7 +164,7 @@ def _gathered(cuda, n, k, hi, seed):
     g = _gen(cuda, seed)
     words = [torch.randint(0, hi, (2 * n,), generator=g, device=cuda)
              for _ in range(k)]
-    return words, _order_from_words(words)[::2].contiguous()
+    return words, argsort_words(words, None, "torch")[::2].contiguous()
 
 
 def _assert_gathered(words, pos):
@@ -192,7 +193,7 @@ def test_dense_rank_gather_kernel_takes_words_up_to_its_cap(cuda, n):
     words = [torch.zeros(n, dtype=torch.int64, device=cuda)] * (k - 1)
     words.append(torch.randint(0, 2, (n,), generator=_gen(cuda, 1),
                                device=cuda))
-    _assert_gathered(words, _order_from_words(words[-1:]))
+    _assert_gathered(words, argsort_words(words[-1:], None, "torch"))
     with pytest.raises(ValueError, match=str(k)):
         ops.dense_rank_gathered(words + words[:1], words[0][:1])
 
@@ -360,7 +361,7 @@ def test_radix_argsort_kernels_match_stable_sort_passes(cuda, n, kind):
     got = ops.radix_argsort(words, bits)
     if n > 1:
         assert ops.LAUNCHES["radix_scatter"] > before
-    torch.testing.assert_close(got, _order_from_words(words), rtol=0, atol=0)
+    torch.testing.assert_close(got, argsort_words(words, None, "torch"), rtol=0, atol=0)
     torch.testing.assert_close(got, ref.radix_argsort_ref(words, bits),
                                rtol=0, atol=0)
 

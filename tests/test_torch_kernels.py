@@ -235,7 +235,7 @@ def test_seg_boundary_all_equal_and_all_distinct_rows():
 def test_dense_rank_sorted_matches_jax(n, w, block):
     rng = np.random.default_rng(n + w)
     rows = _sorted_rows(rng, n, w)
-    got, ndist = ops.dense_rank_sorted(torch.from_numpy(rows), block=block)
+    got, ndist = ops.dense_rank_sorted(torch.from_numpy(rows))
     want, want_n = jops.dense_rank_sorted(jnp.asarray(rows), block=block)
     assert got.dtype == torch.int32
     _eq(got, want)

@@ -1,4 +1,4 @@
-"""Lemma-1 tie resolution of the port (`core.dcv_torch._lemma1_order`): a
+"""Lemma-1 tie resolution of the port (`core.words.lemma1_order`): a
 keyed sort of each tie group's classes, then one `lemma1_merge` launch.
 
 Builds are held to the naive oracle (`repro_torch.core.oracle`); the merge
@@ -18,6 +18,7 @@ import torch
 from repro_torch.bsp import psort
 from repro_torch.bsp.suffix_array import suffix_array_bsp
 from repro_torch.core import dcv_torch
+from repro_torch.core.words import lemma1_order
 from repro_torch.core.difference_cover import cover_tables
 from repro_torch.core.oracle import suffix_array_doubling
 from repro_torch.kernels import ops, ref
@@ -106,13 +107,13 @@ def _class_sorted(p, lane, rvals, klass, lam1):
 def test_builds_with_wide_tie_groups_match_the_oracle(monkeypatch, impl,
                                                       seed):
     widest = []
-    order = dcv_torch._lemma1_order
+    order = dcv_torch.lemma1_order
 
     def record(p, lane, width, *args):
         widest.append(int(width.max()))
         return order(p, lane, width, *args)
 
-    monkeypatch.setattr(dcv_torch, "_lemma1_order", record)
+    monkeypatch.setattr(dcv_torch, "lemma1_order", record)
     x = _repeated_phrases(seed)
     got = dcv_torch.suffix_array_torch(x, sort_impl=impl, device="cpu")
     np.testing.assert_array_equal(got.numpy(), suffix_array_doubling(x))
@@ -132,8 +133,7 @@ def test_lemma1_order_equals_the_comparator_sort(v):
     p, lane, width, rvals, klass, bound = _payload(v, 1500, v)
     _, lam1, lam2 = _tables(v)
     want = _comparator_order(p, lane, rvals, klass, lam1, lam2)
-    got = dcv_torch._lemma1_order(p, lane, width, rvals, klass, lam1, lam2,
-                                  bound)
+    got = lemma1_order(p, lane, width, rvals, klass, lam1, lam2, bound)
     assert got.tolist() == want
     perm = _class_sorted(p, lane, rvals, klass, lam1)
     merged = ref.lemma1_merge_ref(p[perm], klass[perm], rvals[perm], lane,
@@ -149,8 +149,7 @@ def test_ties_of_the_comparator_fall_to_p():
     rvals = torch.full_like(rvals, 7)
     klass = torch.as_tensor(np.random.default_rng(SEED).integers(0, v, 400))
     _, lam1, lam2 = _tables(v)
-    got = dcv_torch._lemma1_order(p, lane, width, rvals, klass, lam1, lam2,
-                                  bound)
+    got = lemma1_order(p, lane, width, rvals, klass, lam1, lam2, bound)
     assert got.tolist() == p.tolist()
     assert got.tolist() == _comparator_order(p, lane, rvals, klass, lam1,
                                              lam2)
@@ -160,8 +159,7 @@ def test_ties_of_the_comparator_fall_to_p():
 def test_each_group_is_a_permutation_of_its_rows(v):
     p, lane, width, rvals, klass, bound = _payload(2, 2000, v)
     _, lam1, lam2 = _tables(v)
-    got = dcv_torch._lemma1_order(p, lane, width, rvals, klass, lam1, lam2,
-                                  bound)
+    got = lemma1_order(p, lane, width, rvals, klass, lam1, lam2, bound)
     start = (torch.arange(len(p)) - lane).tolist()
     for s in sorted(set(start)):
         w = int(width[s])
@@ -241,8 +239,7 @@ def test_lemma1_merge_kernel_matches_plain(cuda, v, n_rows):
     assert ops.LAUNCHES["lemma1_merge"] == before + 1
     torch.testing.assert_close(got, ref.lemma1_merge_ref(*args), rtol=0,
                                atol=0)
-    order = dcv_torch._lemma1_order(p, lane, width, rvals, klass, lam1, lam2,
-                                    bound)
+    order = lemma1_order(p, lane, width, rvals, klass, lam1, lam2, bound)
     torch.cuda.synchronize()
     assert ops.LAUNCHES["lemma1_merge"] == before + 2
     torch.testing.assert_close(order, got, rtol=0, atol=0)

@@ -258,9 +258,12 @@ def test_unported_kinds_raise_item_2b():
 
 def test_sa_config_fields_and_defaults_equal_jax():
     from repro.configs.suffix_array import SAConfig as JSAConfig
+    # the port drops `cache`: its builder cache and level padding bounded
+    # the JAX package's compiled shapes, and the port compiles none
     ours = [(f.name, f.default) for f in dataclasses.fields(SAConfig)]
     theirs = [(f.name, f.default) for f in dataclasses.fields(JSAConfig)]
-    assert ours == theirs
+    assert ("cache", True) in theirs
+    assert ours == [f for f in theirs if f != ("cache", True)]
     assert SAConfig().shard_docs == 8
 
 

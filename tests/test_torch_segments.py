@@ -26,10 +26,10 @@ import pytest
 import repro.api as japi
 from repro_torch.api import (QuerySession, SAOptions, Segment,
                              SegmentedIndex, SegmentedIndexStore,
-                             StaleIndexError, SuffixArrayIndex,
-                             builder_cache_stats)
+                             StaleIndexError, SuffixArrayIndex)
 from repro_torch.serve import SAServer
 from repro_torch.sparse import PatternTooShortError
+from repro_torch.trace import counters
 
 CPU = "cpu"
 REPO = Path(__file__).resolve().parent.parent
@@ -40,8 +40,7 @@ JSEQ = japi.SAOptions(backend="seq")
 
 
 def _builds():
-    s = builder_cache_stats()
-    return s["hits"] + s["misses"]
+    return counters().get("repro_torch.builds", 0)
 
 
 def _docs(seed=0, n_docs=7, sigma=5, lo=20, hi=60):
@@ -468,8 +467,8 @@ def test_invalid_entry_and_segment_ids(store):
 # ------------------------------------------------- subprocess warm restart
 _PHASE = r"""
 import json, sys
-from repro_torch.api import (SAOptions, SegmentedIndex, SegmentedIndexStore,
-                             builder_cache_stats)
+from repro_torch.api import SAOptions, SegmentedIndex, SegmentedIndexStore
+from repro_torch.trace import counters
 
 root, phase = sys.argv[1], sys.argv[2]
 opts = SAOptions(compact_fanin=64)
@@ -477,8 +476,7 @@ docs = [[1, 2, 3, 1, 2], [2, 2, 2, 0], [0, 1, 0, 1, 0]]
 store = SegmentedIndexStore(root, device="cpu")
 
 def builds():
-    s = builder_cache_stats()
-    return s["hits"] + s["misses"]
+    return counters().get("repro_torch.builds", 0)
 
 if phase == "build":
     sidx = SegmentedIndex.from_docs(docs, opts, segment_docs=1, device="cpu")

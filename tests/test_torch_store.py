@@ -26,12 +26,12 @@ import repro.api as japi
 from repro.ckpt import checkpoint as jckpt
 from repro_torch.api import (IndexStore, SAOptions, SegmentedIndex,
                              SegmentedIndexStore, StaleIndexError,
-                             SuffixArrayIndex, builder_cache_stats,
-                             corpus_fingerprint, encode_docs, load_index,
-                             save_index)
+                             SuffixArrayIndex, corpus_fingerprint,
+                             encode_docs, load_index, save_index)
 from repro_torch.ckpt import (restore_checkpoint, save_checkpoint,
                               wait_for_async)
 from repro_torch.sparse import SparseSuffixArrayIndex
+from repro_torch.trace import counters
 
 CPU = "cpu"
 REPO = Path(__file__).resolve().parent.parent
@@ -76,8 +76,8 @@ def test_fingerprint_covers_plan_not_runtime():
     base = SAOptions(backend="torch", v0=3)
     assert base.fingerprint() == SAOptions(backend="torch").fingerprint()
     assert base.fingerprint() == \
-        SAOptions(backend="torch", cache=False, counters=object(),
-                  stats=object(), validate=False).fingerprint()
+        SAOptions(backend="torch", counters=object(), stats=object(),
+                  validate=False).fingerprint()
     for change in ({"v0": 7}, {"schedule": "fixed"}, {"base_threshold": 99},
                    {"sort_impl": "torch"}, {"backend": "seq"},
                    {"sample_rate": 4}):
@@ -483,9 +483,9 @@ def test_segmented_store_writes_only_dirty_segments(tmp_path):
     seg.delete_doc(0)                    # rebuilds its segment: one new,
     assert store.save("c", seg) == {"segments_written": 1,    # one dropped
                                     "segments_deleted": 1}
-    before = builder_cache_stats()
+    before = counters().get("repro_torch.builds", 0)
     loaded = store.load("c", options=opts)
-    assert builder_cache_stats() == before
+    assert counters().get("repro_torch.builds", 0) == before
     assert loaded.n_docs == 6 and loaded.count([1, 2, 3, 4]) >= 1
     assert store.stats()["segments_written"] == 5
 
@@ -602,14 +602,15 @@ def test_serve_restart_with_warm_store_skips_build(tmp_path):
     rebuilding: the second process reports a store hit and no builder
     traffic at all."""
     code = textwrap.dedent(f"""
-    from repro_torch.api import builder_cache_stats
     from repro_torch.configs import get_config
     from repro_torch.launch.serve import serve_sa_queries
+    from repro_torch.trace import counters
     run = serve_sa_queries(get_config("suffix-array"), n_chars=4000,
                            n_docs=2, n_queries=8, pattern_len=8,
                            store_dir={str(tmp_path / 'store')!r},
                            query_batch=8, device="cpu")
-    print("BUILDER_STATS", builder_cache_stats(), run.store_status)
+    print("BUILDS", counters().get("repro_torch.builds", 0),
+          run.store_status)
     """)
     env = {"PYTHONPATH": str(REPO / "src"), "PATH": "/usr/bin:/bin",
            "HOME": str(tmp_path)}
@@ -621,5 +622,4 @@ def test_serve_restart_with_warm_store_skips_build(tmp_path):
         outs.append(r.stdout)
     assert "index store: miss" in outs[0] and "indexed" in outs[0]
     assert "index store: hit" in outs[1] and "restored" in outs[1]
-    assert ("BUILDER_STATS {'entries': 0, 'hits': 0, 'misses': 0} hit"
-            in outs[1])
+    assert "BUILDS 0 hit" in outs[1]
