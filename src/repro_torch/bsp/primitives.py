@@ -11,6 +11,7 @@ import math
 
 import torch
 
+from ..core.words import run_starts
 from ..trace import span
 
 INT32_MAX = torch.iinfo(torch.int32).max
@@ -33,9 +34,10 @@ def within_group_index(group: torch.Tensor, valid: torch.Tensor):
     """For each element, its index among *valid* elements with the same
     `group` value (order = original position). Invalid elements get 0.
 
-    A stable sort of the group ids (invalid ones last), run starts from
-    the boundary flags, their running maximum (`torch.cummax`), and the
-    positions scattered back. Returns int32[m]."""
+    A stable sort of the group ids (invalid ones last), each slot's run
+    start from the boundary flags (`core.words.run_starts`: one cumsum,
+    one scatter, one gather, no scan in series), and the positions
+    scattered back. Returns int32[m]."""
     with span("repro_torch.bsp.group_index"):
         m = group.shape[0]
         big = torch.where(valid, group.to(torch.int32), INT32_MAX)
@@ -45,7 +47,7 @@ def within_group_index(group: torch.Tensor, valid: torch.Tensor):
         boundary = torch.ones(m, dtype=torch.bool, device=group.device)
         if m > 1:
             boundary[1:] = g_sorted[1:] != g_sorted[:-1]
-        run_start = torch.cummax(torch.where(boundary, pos, 0), dim=0).values
+        run_start = run_starts(boundary)
         out = torch.empty_like(pos).scatter_(0, order, pos - run_start)
         return torch.where(valid, out, 0).to(torch.int32)
 

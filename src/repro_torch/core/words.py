@@ -10,9 +10,10 @@ clear), and the word lists are argsorted (`argsort_words`). Comparing two
 rows' word lists lexicographically equals comparing their columns.
 
 After a sort, rows with equal keys form runs along the order: `run_state`
-gives each slot its run's start and size, `compact` lists the slots of a
-mask without a host read, and `lemma1_order` orders the members of each
-run by the paper's Lemma-1 comparator.
+gives each slot its run's start and size (`run_starts` the start alone),
+`compact` lists the slots of a mask without a host read, and
+`lemma1_order` orders the members of each run by the paper's Lemma-1
+comparator.
 """
 from __future__ import annotations
 
@@ -88,9 +89,8 @@ def compact(mask: torch.Tensor, count: int) -> torch.Tensor:
     return out[:count]
 
 
-def run_state(is_start: torch.Tensor):
-    """Per slot: the slot where its run starts, and the run's size.
-    `is_start[0]` must be True."""
+def _run_table(is_start: torch.Tensor):
+    """(run_id, start_of): each slot's run, and each run's first slot."""
     n = len(is_start)
     run_id = torch.cumsum(is_start, 0) - 1
     # start_of[r] = first slot of run r; the entry after the last run keeps
@@ -99,6 +99,20 @@ def run_state(is_start: torch.Tensor):
     start_of = torch.full((n + 1,), n, dtype=I64, device=is_start.device)
     start_of.scatter_(0, torch.where(is_start, run_id, n),
                       torch.arange(n, device=is_start.device))
+    return run_id, start_of
+
+
+def run_starts(is_start: torch.Tensor) -> torch.Tensor:
+    """Per slot: the slot where its run starts. `is_start[0]` must be
+    True. One cumsum, one scatter and one gather: no scan in series."""
+    run_id, start_of = _run_table(is_start)
+    return start_of[run_id]
+
+
+def run_state(is_start: torch.Tensor):
+    """Per slot: the slot where its run starts, and the run's size.
+    `is_start[0]` must be True."""
+    run_id, start_of = _run_table(is_start)
     run_start = start_of[run_id]
     return run_start, start_of[run_id + 1] - run_start
 

@@ -27,7 +27,8 @@ from repro_torch.bsp.counters import BSPCounters
 from repro_torch.core import dcv_torch
 from repro_torch.core.compat import resolve_sort_impl
 from repro_torch.core.dcv_torch import suffix_array_torch
-from repro_torch.core.words import pack_words, run_state, word_bits
+from repro_torch.core.words import (pack_words, run_starts, run_state,
+                                    word_bits)
 from repro_torch.trace import counters
 
 REPO = Path(__file__).resolve().parent.parent
@@ -211,8 +212,9 @@ def test_doubling_base_case_matches_oracle(n):
 
 @pytest.mark.parametrize("kind", ["random", "all_starts", "one_run"])
 def test_run_state_matches_numpy(kind):
-    # the tie-run bookkeeping of `_resolve_ties`, against the reference's
-    # numpy form (start_slot[run_id], sizes[run_id])
+    # the tie-run bookkeeping of `_resolve_ties` (and `run_starts`, the
+    # start alone), against the reference's numpy form (start_slot[run_id],
+    # sizes[run_id])
     rng = np.random.default_rng(SEED + 2)
     is_start = {"random": rng.random(1000) < 0.3,
                 "all_starts": np.ones(1000, bool),
@@ -224,6 +226,8 @@ def test_run_state_matches_numpy(kind):
     run_start, run_size = run_state(torch.from_numpy(is_start))
     np.testing.assert_array_equal(run_start.numpy(), start_slot[run_id])
     np.testing.assert_array_equal(run_size.numpy(), sizes[run_id])
+    np.testing.assert_array_equal(run_starts(torch.from_numpy(is_start)),
+                                  start_slot[run_id])
 
 
 @pytest.mark.parametrize("v", [3, 4, 5, 8, 14])

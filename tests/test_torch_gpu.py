@@ -457,6 +457,19 @@ def test_bsp_build_on_the_card_matches_the_single_device_sa(cuda, impl):
         assert launched == RADIX_PATH, ops.LAUNCHES
 
 
+def test_within_group_index_on_the_card_matches_the_cpu(cuda):
+    """An exchange hop's shape (2^21 over p + 1 = 9 ids, 10% invalid): the
+    card's run starts (`core.words.run_starts`) give the CPU's integers."""
+    from repro_torch.bsp import within_group_index
+    rng = np.random.default_rng(30)
+    group = torch.from_numpy(rng.integers(0, 9, 2 ** 21))
+    valid = torch.from_numpy(rng.random(2 ** 21) > 0.1)
+    want = within_group_index(group, valid)
+    got = within_group_index(group.to(cuda), valid.to(cuda))
+    assert got.dtype == torch.int32
+    torch.testing.assert_close(got.cpu(), want, rtol=0, atol=0)
+
+
 # ------------------------------------------------------- serving on the card
 def _serving_corpus():
     rng = np.random.default_rng(15)

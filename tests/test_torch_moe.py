@@ -2,8 +2,9 @@
 (`repro_torch.bsp.within_group_index`) held against the JAX package's on
 the CPU, with the same params and inputs (numpy, from a seed).
 
-* `within_group_index` on random groups and masks, m = 1, all-invalid and
-  one group: equal element for element.
+* `within_group_index` on random groups and masks, m = 1, all-invalid,
+  one group, an exchange hop's shape (2^18 over 9 ids), m = 0 and all ids
+  distinct: equal element for element.
 * The routing of `_moe_local` (``tp=1``): from the same float32 router
   logits, the expert ids, the arrival slots and their keep flags, the
   per-expert slots and theirs equal the reference's element for element
@@ -57,11 +58,18 @@ def _groups(case):
         return np.full(200, 5), rng.random(200) > 0.3
     if case == "negative ids":
         return rng.integers(-3, 3, 500), rng.random(500) > 0.2
+    if case == "exchange hop":                 # p + 1 = 9 ids, 10% invalid
+        return rng.integers(0, 9, 2 ** 18), rng.random(2 ** 18) > 0.1
+    if case == "m=0":
+        return np.zeros(0, np.int64), np.zeros(0, bool)
+    if case == "all distinct":                 # every slot starts a run
+        return rng.permutation(3000) - 1500, np.ones(3000, bool)
     return rng.integers(0, 16, 4096), rng.random(4096) > 0.1
 
 
 @pytest.mark.parametrize("case", ["random", "m=1", "all-invalid",
-                                  "one group", "negative ids"])
+                                  "one group", "negative ids",
+                                  "exchange hop", "m=0", "all distinct"])
 def test_within_group_index_equals_jax(case):
     group, valid = _groups(case)
     want = np.asarray(jwithin(jnp.asarray(group, jnp.int32),

@@ -1,8 +1,9 @@
 """The port's spans (`repro_torch.trace.span`) on the build path, on the
 CPU: their names and nesting under `torch.profiler`, one
 `repro_torch.mesh.collective` span a rendezvous of Algorithm 3's mesh,
-no record function entered with the profiler off, and suffix arrays
-equal to the JAX package's oracle either way."""
+no scan op under `repro_torch.bsp.group_index`, no record function
+entered with the profiler off, and suffix arrays equal to the JAX
+package's oracle either way."""
 import collections
 
 import numpy as np
@@ -13,6 +14,7 @@ from torch.profiler import ProfilerActivity, profile
 import repro_torch.trace
 from repro.core.oracle import suffix_array_doubling
 from repro_torch.api import SAOptions, SuffixArrayIndex, encode_docs
+from repro_torch.bsp import within_group_index
 from repro_torch.bsp.counters import BSPCounters
 from repro_torch.launch.mesh import make_sa_mesh
 
@@ -100,6 +102,24 @@ def test_mesh_collective_spans_equal_rendezvous():
     assert count["repro_torch.bsp.group_index"] > 0
     assert count["repro_torch.bsp.sm1"] == count["repro_torch.bsp.sm2"] \
         == counters.rounds > 0
+
+
+def test_group_index_runs_no_scan():
+    """`within_group_index` finds its run starts with `core.words.run_starts`:
+    no running maximum or minimum (a scan in series on the card), and one
+    `repro_torch.bsp.group_index` span a call."""
+    rng = np.random.default_rng(5)
+    calls = [(torch.from_numpy(rng.integers(0, 9, m)),
+              torch.from_numpy(rng.random(m) > 0.1)) for m in (0, 1, 4096)]
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        for group, valid in calls:
+            within_group_index(group, valid)
+    ops = {e.name() for e in prof.profiler.kineto_results.events()}
+    assert not ops & {"aten::cummax", "aten::cummin", "aten::_cummax_helper",
+                      "aten::_cummin_helper"}
+    assert "aten::cumsum" in ops
+    count = collections.Counter(n for _, _, n in program_spans(prof))
+    assert count["repro_torch.bsp.group_index"] == len(calls)
 
 
 def test_profiler_off_enters_no_record_function(monkeypatch):
