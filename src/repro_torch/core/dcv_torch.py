@@ -19,6 +19,11 @@ where Python control flow needs a number: whether the sample ranks are
 all distinct (one read per level) and the size of the unresolved tie set
 after each refinement round.
 
+Counters (`repro_torch.trace.count`, host integers already read):
+``repro_torch.dcv.levels`` (one a level that sorts windows),
+``repro_torch.dcv.refine_rounds`` (one a refinement round) and
+``repro_torch.dcv.lemma1_rows`` (the tied rows handed to Lemma 1).
+
 `sort_impl` picks the window sort (see `repro_torch.core.compat`):
 "kernel" sorts window rows with the bitonic kernel and ranks the samples
 with `dense_rank_sorted`; "torch" packs the window columns into int64
@@ -41,7 +46,7 @@ import torch
 from ..kernels.ops import bitonic_sort as kernel_bitonic_sort
 from ..kernels.ops import dense_rank_gathered, dense_rank_sorted
 from ..kernels.ref import rows_neq
-from ..trace import span
+from ..trace import count, span
 from .bitonic import (bitonic_sort, lex_lt_int, next_pow2,
                       sort_rows_with_index)
 from .compat import resolve_device, resolve_sort_impl
@@ -208,6 +213,7 @@ def _resolve_ties(order, is_start, rank, shifts, lam1, lam2, v: int,
     stride = v
     cap = max(_TIEBREAK_COMPACT_MAX, n_v >> 3)
     while U > cap and stride < n_v:
+        count("repro_torch.dcv.refine_rounds")
         with span("repro_torch.dcv.refine"):
             sl = compact(unresolved, U)
             p = order[sl]
@@ -227,6 +233,7 @@ def _resolve_ties(order, is_start, rank, shifts, lam1, lam2, v: int,
         return order
 
     # Lemma-1 comparator on the compacted ties only.
+    count("repro_torch.dcv.lemma1_rows", U)
     with span("repro_torch.dcv.lemma1"):
         sl = compact(unresolved, U)
         p = order[sl]
@@ -364,6 +371,7 @@ def suffix_array_torch(
         lo = -(n_v + 2 * v - n)
 
         # --- ONE window sort feeds Step 1 AND Steps 2–4 ---
+        count("repro_torch.dcv.levels")
         with span("repro_torch.dcv.window_order"):
             order, is_start, rep = window_order(xp, n_v, v, lo, hi, impl)
 
